@@ -22,8 +22,24 @@ directory that lacks the port's package. It
 5. holds each kernel (K1 knn_select, K2 fps) against its plain PyTorch
    version on those captured main-path tables (exact equality), and times
    kernel, plain version and library call with CUDA events;
-6. prints a ``kernels`` line with each kernel's launches in the main-path
-   run, its times and its bound, the card's line, and last
+6. runs the row-gather probe (tools/gather_probe.py: kernel K3 and its plain
+   version, all ``OK``);
+7. writes a synthetic dataset (4 scenes of 250,000 points, 2 of them val)
+   and two checkpoints of seeded random weights into build/smoke_data (the
+   few-shot one with its foreground class biased on, see there), and
+   drives both eval drivers on it from their command lines: cli.test at the
+   config/test_geoformer_scannet.yaml settings and cli.test_fs at the
+   config/test_geoformer_fs_scannet.yaml settings (run_num cut to 2). Each
+   must end in a finite AP table with every capacity counter at 0 and must
+   launch K1 and K2;
+8. holds K3 against its plain version at the probe's shape and at the
+   forward's foreground gather, K2 at the two shapes of the few-shot
+   path (support instance, 20,000-point aggregator) and K1 at the few-shot
+   path's table, captured there;
+9. prints a ``kernels`` line with each kernel's launches on its paths (K2's
+   by shape: every counted run logs the shape of each K2 call, and a row's
+   ``launches`` are those made at its shape), its times and its bound, the
+   card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check ends the run
@@ -33,7 +49,9 @@ with a non-zero exit and no ``ok`` line.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -72,6 +90,36 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, flush=None) -> float:
+    """Mean device time of fn() from torch.profiler (sum over the CUDA
+    kernels and copies it enqueues). For kernels of a few microseconds,
+    where a loop between two CUDA events runs at the host's launch pace and
+    not at the device's. With ``flush`` (a buffer several times the L2's
+    size) every call finds the L2 cold: the buffer is filled before it, and
+    the fill kernels' time is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.fill_(0.0)
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == cuda]
+    if flush is not None:
+        if not any("FillFunctor" in k for k, _ in events):
+            fail("the L2 flush's fill kernel was not found in the profile")
+        events = [(k, t) for k, t in events if "FillFunctor" not in k]
+    total_us = sum(t for _, t in events)
+    if total_us <= 0:
+        fail("torch.profiler recorded no device time")
+    return total_us / 1e3 / reps
 
 
 def check_finite(torch, name, t) -> None:
@@ -114,6 +162,174 @@ def profile_forward(torch, engine, batch) -> None:
           "top": [[k[:90], ms, n] for k, ms, n in rows[:12]]})
 
 
+class FpsShapeLog(list):
+    """Stands in for ``fps.capture`` during a counted run: of each call it
+    keeps the shape [B, P, n_samples] and drops the tensors, so that the
+    run's launches can be told apart by shape."""
+
+    def append(self, call):
+        points, _, n_samples = call
+        super().append((*points.shape[:2], n_samples))
+
+    def by_shape(self) -> dict:
+        return {json.dumps(list(k)): self.count(k) for k in sorted(set(self))}
+
+
+def read_launches(counters, fps_log) -> dict:
+    """The wrappers' counts after a counted run, K2's also by shape; every
+    logged K2 call must have been a launch."""
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if len(fps_log) != launches["fps"]:
+        fail(f"fps: {len(fps_log)} calls logged, {launches['fps']} launches counted")
+    launches["fps_by_shape"] = fps_log.by_shape()
+    return launches
+
+
+def bits(torch, t):
+    """float32 tensors as their bit patterns, so that equality holds NaN
+    payloads and the sign of zero too."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def kernel_row(torch, *, name, source, replaces, launches, kernel, plain, library, bytes_, ops,
+               shape, reps, plain_reps, timer=time_ms, **extra) -> dict:
+    """Hold ``kernel()`` against ``plain()`` (exact equality of every output)
+    and time both, and ``library()`` where there is one, with ``timer``.
+    ``bytes_`` and ``ops`` are what the function must move and do on these
+    inputs."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if not all(g.shape == w.shape and torch.equal(bits(torch, g), bits(torch, w)) for g, w in zip(got, want)):
+        fail(f"{name} kernel disagrees with its plain version at {shape}")
+    err = max(float((g.double() - w.double()).abs().nan_to_num().max()) for g, w in zip(got, want))
+    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err,
+        "ms": timer(torch, kernel, reps),
+        "plain_ms": timer(torch, plain, plain_reps),
+        "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": timer(torch, library, reps) if library is not None else None,
+        "shape": shape, **extra}
+    emit({"phase": "kernel", **row})
+    return row
+
+
+def fps_row(torch, fps, fps_plain, inputs, launches) -> dict:
+    pts, msk, ns = inputs
+    b, p, _ = pts.shape
+    n_valid = int(msk.sum())
+    return kernel_row(
+        torch, name="fps", source="geoformer_tpu_torch/csrc/fps.cu",
+        replaces="geoformer_tpu/ops/fps_pallas.py:29", launches=launches,
+        kernel=lambda: fps(pts, msk, ns), plain=lambda: fps_plain(pts, msk, ns), library=None,
+        # points and mask read once, picks written once; 9 operations per
+        # valid point and pick
+        bytes_=b * p * 13 + b * ns * 4, ops=(ns - 1) * n_valid * 9,
+        shape=[b, p, ns], reps=10, plain_reps=2, n_valid=n_valid)
+
+
+def row_gather_row(torch, row_gather, row_gather_plain, x, idx, launches) -> dict:
+    """K3 takes a few microseconds, so its times are the profiler's device
+    times: with the L2 flushed before every call (``ms``, ``plain_ms``,
+    ``library_ms``, to stand beside a bound at the device memory's rate) and
+    with the L2 warm (``l2_warm``); ``wrapper_loop_ms`` is the pace of a
+    loop over the wrapper, which the host sets."""
+    n, q = idx.shape[0], x.shape[1]
+    idx64 = idx.reshape(-1).long()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=x.device)  # 256 MB
+    fns = {"ms": lambda: row_gather(x, idx), "plain_ms": lambda: row_gather_plain(x, idx),
+           "library_ms": lambda: torch.index_select(x, 0, idx64)}
+    return kernel_row(
+        torch, name="row_gather", source="geoformer_tpu_torch/csrc/row_gather.cu",
+        replaces="tools/pallas_gather_probe.py:65", launches=launches,
+        kernel=fns["ms"], plain=fns["plain_ms"], library=fns["library_ms"],
+        # each gathered row read once and written once, each id read once
+        bytes_=n * (2 * q * 4 + 4), ops=0, shape=[x.shape[0], q, n], reps=50, plain_reps=50,
+        timer=functools.partial(device_ms, flush=flush),
+        l2_warm={k: device_ms(torch, fn, 50) for k, fn in fns.items()},
+        wrapper_loop_ms=time_ms(torch, fns["ms"], 50))
+
+
+def write_smoke_data(torch, cfg_mod, Engine, here) -> dict:
+    """A synthetic dataset of full-size scenes, the two drivers' configs and
+    two checkpoints of seeded random weights, under build/smoke_data."""
+    import yaml
+
+    from geoformer_tpu_torch.synthetic import write_dataset
+    from geoformer_tpu_torch.weights import save_jax_checkpoint
+
+    t0 = time.time()
+    root = os.path.join(here, "build", "smoke_data")
+    write_dataset(root, n_scenes=4, n_points=250000, seed=0)
+    common = dict(data_root=root, output_path=os.path.join(root, "exp"), split="val")
+    cfgs = {"test": cfg_mod.scannet_eval_config(**common),
+            # the published protocol runs 10 support sets; 2 keep the smoke short
+            "test_fs": cfg_mod.scannet_fs_eval_config(run_num=2, **common)}
+    paths = {}
+    for name, cfg in cfgs.items():
+        values = {k: v for k, v in cfg.to_dict().items() if k != "config"}
+        paths[name] = {"config": os.path.join(root, f"{name}.yaml"),
+                       "ckpt": os.path.join(root, f"{name}.ckpt")}
+        with open(paths[name]["config"], "w") as f:
+            yaml.safe_dump({"ALL": values}, f)
+        engine = Engine(cfg, seed=0, few_shot=name == "test_fs")
+        if name == "test_fs":
+            # The few-shot config evaluates fold 1 with a backbone of fold 0:
+            # its foreground is semantic class 3 ("outside the fold"), which
+            # random weights never predict. A bias on that one logit makes
+            # every point foreground, as in the supervised run, so that the
+            # path runs at its full capacities (131,072 fg points, 20,000
+            # aggregator points) and not on an empty scene.
+            with torch.no_grad():
+                engine.model.semantic.Dense_2.bias[3] += 1e4
+        save_jax_checkpoint(paths[name]["ckpt"], engine.model)
+    emit({"phase": "dataset", "root": os.path.relpath(root, here), "scenes": 4, "val_scenes": 2,
+          "points": 250000, "cut": {"run_num": [10, 2]}, "seconds": time.time() - t0})
+    return {"cfgs": cfgs, "paths": paths}
+
+
+def run_driver(torch, name, main, paths, counters) -> dict:
+    """One eval driver from its command line, with the kernels' launch
+    counts set to 0 just before and read just after."""
+    for fn in counters.values():
+        fn.launches = 0
+    fps_log = counters["fps"].capture = FpsShapeLog()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    summary = main(["--config", paths["config"], "--pretrain", paths["ckpt"],
+                    "--output_path", os.path.join(os.path.dirname(paths["config"]), "exp"),
+                    "--exp_name", name])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counters["fps"].capture = None
+    launches = read_launches(counters, fps_log)
+    avgs = summary["avgs"]
+    res = {"phase": f"driver_{name}", "all_ap": avgs["all_ap"], "all_ap_50%": avgs["all_ap_50%"],
+           "all_ap_25%": avgs["all_ap_25%"], "scenes": summary["scenes"],
+           "n_degraded": summary["n_degraded"], "launches": launches, "seconds": seconds,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if "stage_ms" in summary:
+        res["stage_ms"] = {k: {"calls": len(v), "mean": sum(v) / len(v), "max": max(v)}
+                           for k, v in summary["stage_ms"].items()}
+    emit(res)
+    if not all(math.isfinite(avgs[k]) for k in ("all_ap", "all_ap_50%", "all_ap_25%")):
+        fail(f"driver {name}: AP is not finite")
+    if len(summary["scenes"]) != 2:
+        fail(f"driver {name}: {len(summary['scenes'])} scenes evaluated, expected 2")
+    if summary["n_degraded"]:
+        fail(f"driver {name}: a scene ran over a static capacity")
+    for k in ("knn_select", "fps"):
+        if launches[k] <= 0:
+            fail(f"driver {name}: kernel {k} was not launched")
+    if any(r["fg_points"] <= 0 for r in summary["scenes"]):
+        fail(f"driver {name}: a scene had no foreground point")
+    return res
+
+
 def small_reference(torch, cfg_mod, Engine, synthetic_batch) -> dict:
     """Same seeded weights on the card and on the CPU at a small size: the
     CPU runs the kernels' plain versions."""
@@ -154,13 +370,17 @@ def main(argv=None) -> int:
 
     from geoformer_tpu_torch import config as cfg_mod
     from geoformer_tpu_torch import kernels
+    from geoformer_tpu_torch.cli import test as cli_test
+    from geoformer_tpu_torch.cli import test_fs as cli_test_fs
     from geoformer_tpu_torch.engine import Engine
     from geoformer_tpu_torch.kernels.fps import fps, fps_plain
+    from geoformer_tpu_torch.kernels.row_gather import row_gather, row_gather_plain
     from geoformer_tpu_torch.kernels.knn_select import (
         select_min_k_cand,
         select_min_k_cand_plain,
     )
     from geoformer_tpu_torch.synthetic import synthetic_batch
+    from geoformer_tpu_torch.tools import gather_probe
 
     smi = nvidia_smi()
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
@@ -169,6 +389,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     so = kernels.build()
     emit({"phase": "build", "library": os.path.relpath(so, here),
+          "sources": [os.path.basename(p) for p in kernels.sources()],
           "seconds": time.time() - t0})
 
     small_reference(torch, cfg_mod, Engine, synthetic_batch)
@@ -178,9 +399,11 @@ def main(argv=None) -> int:
     engine = Engine(cfg, seed=0)
     mc = engine.mc
     P, F, Q, C = cfg.tpu_max_points, mc.max_fg_points, mc.n_query_points, mc.classes
+    counters = {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather}
     torch.cuda.reset_peak_memory_stats()
-    select_min_k_cand.launches = 0
-    fps.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
+    fps_log = fps.capture = FpsShapeLog()
     scene_ms = []
     for seed in range(max(args.scenes, 2)):
         batch = synthetic_batch(cfg, 1, seed=seed)
@@ -209,11 +432,12 @@ def main(argv=None) -> int:
               "proposals_after_nms": int(out["nms"]["keep"].sum()),
               "geodesic_passes": [list(p) for p in engine.model.geodesic_passes],
               "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    launches = {"knn_select": select_min_k_cand.launches, "fps": fps.launches}
+    fps.capture = None
+    launches = read_launches(counters, fps_log)
     emit({"phase": "main_path", "scenes": len(scene_ms), "ms_per_scene": scene_ms,
           "launches": launches})
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("knn_select", "fps"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
 
     # outside the counted main-path run: where the time goes in scene 0 (one
@@ -232,59 +456,112 @@ def main(argv=None) -> int:
     select_min_k_cand.capture, fps.capture = knn_inputs, fps_inputs
     engine.eval_batch(batch)
     select_min_k_cand.capture = fps.capture = None
-    del out, engine
+    # the forward's own foreground gather (gather_rows(point_feats, fg_idx)),
+    # the real-size input of the K3 phase
+    with torch.no_grad():
+        tb = engine.to_device(batch)
+        point_feats, _, semantic_preds, _ = engine.model.forward_backbone(tb)
+        fg_idx, _ = engine.model.foreground_pack(semantic_preds, tb["point_mask"])
+    gather_x, gather_idx = point_feats[0].contiguous(), fg_idx[0].to(torch.int32)
+    del out, engine, tb, point_feats, semantic_preds, fg_idx
     torch.cuda.empty_cache()
 
     # ---------------- kernel phases on the captured main-path tables ----------------
-    rows = []
     d2, cand, k = knn_inputs[0]
     n, w = d2.shape
-    v_k, i_k = select_min_k_cand(d2, cand, k)
-    v_p, i_p = select_min_k_cand_plain(d2, cand, k)
-    torch.cuda.synchronize()
-    if not (torch.equal(v_k, v_p) and torch.equal(i_k, i_p)):
-        fail("knn_select kernel disagrees with its plain version")
-    # what the selection must move: d2 read once, only the k picked ids of
-    # cand (4 B each, not whole sectors), vals and ids written once
-    bytes_ = n * w * 4 + n * k * 4 + n * k * 8
-    ops = n * w * k
-    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    rows.append({
-        "name": "knn_select", "route": "cuda", "source": "geoformer_tpu_torch/csrc/knn_select.cu",
-        "replaces": "geoformer_tpu/ops/knn_select_pallas.py:34",
-        "launches": launches["knn_select"],
-        "max_abs_err": float((v_k - v_p).abs().max()),
-        "ms": time_ms(torch, lambda: select_min_k_cand(d2, cand, k), 20),
-        "plain_ms": time_ms(torch, lambda: select_min_k_cand_plain(d2, cand, k), 3),
-        "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": time_ms(torch, lambda: torch.topk(d2, k, dim=1, largest=False), 20),
-        "shape": [n, w, k]})
-    emit({"phase": "kernel", **rows[-1]})
+    k1_row = kernel_row(
+        torch, name="knn_select", source="geoformer_tpu_torch/csrc/knn_select.cu",
+        replaces="geoformer_tpu/ops/knn_select_pallas.py:34", launches=launches["knn_select"],
+        kernel=lambda: select_min_k_cand(d2, cand, k),
+        plain=lambda: select_min_k_cand_plain(d2, cand, k),
+        library=lambda: torch.topk(d2, k, dim=1, largest=False),
+        # what the selection must move: d2 read once, only the k picked ids of
+        # cand (4 B each, not whole sectors), vals and ids written once
+        bytes_=n * w * 4 + n * k * 4 + n * k * 8, ops=n * w * k, shape=[n, w, k],
+        reps=20, plain_reps=3)
+    k1_shape = [n, w, k]
     del d2, cand, knn_inputs
+    k2_shape = json.dumps([*fps_inputs[0][0].shape[:2], fps_inputs[0][2]])
+    k2_row = fps_row(torch, fps, fps_plain, fps_inputs[0],
+                     launches["fps_by_shape"].get(k2_shape, 0))
+    if k2_row["launches"] != launches["fps"]:
+        fail(f"fps: the main path launched {launches['fps_by_shape']}, held at {k2_shape}")
+    del fps_inputs
 
-    pts, msk, ns = fps_inputs[0]
-    b, p, _ = pts.shape
-    i_k = fps(pts, msk, ns)
-    i_p = fps_plain(pts, msk, ns)
-    torch.cuda.synchronize()
-    if not torch.equal(i_k, i_p):
-        fail(f"fps kernel disagrees with its plain version ({int((i_k != i_p).sum())} picks)")
-    n_valid = int(msk.sum())
-    ops = (ns - 1) * n_valid * 9
-    bytes_ = b * p * 13 + b * ns * 4
-    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    rows.append({
-        "name": "fps", "route": "cuda", "source": "geoformer_tpu_torch/csrc/fps.cu",
-        "replaces": "geoformer_tpu/ops/fps_pallas.py:29",
-        "launches": launches["fps"],
-        "max_abs_err": float((i_k - i_p).abs().max()),
-        "ms": time_ms(torch, lambda: fps(pts, msk, ns), 10),
-        "plain_ms": time_ms(torch, lambda: fps_plain(pts, msk, ns), 2),
-        "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": None,
-        "shape": [b, p, ns]})
-    emit({"phase": "kernel", **rows[-1]})
+    # ---------------- K3's own path: the row-gather probe ----------------
+    row_gather.launches = 0
+    probe = gather_probe.run_probe()
+    probe_launches = row_gather.launches
+    emit({"phase": "gather_probe", "results": probe, "launches": probe_launches})
+    if any(r != "OK" for r in probe.values()):
+        fail(f"gather probe: {probe}")
+    if probe_launches <= 0:
+        fail("kernel row_gather was not launched by the probe")
 
+    # ---------------- the two eval drivers on a dataset on disk ----------------
+    data = write_smoke_data(torch, cfg_mod, Engine, here)
+    by_path = {"eval_batch": launches, "gather_probe": {"row_gather": probe_launches}}
+    for name, main_fn in (("test", cli_test.main), ("test_fs", cli_test_fs.main)):
+        by_path[f"driver_{name}"] = run_driver(
+            torch, name, main_fn, data["paths"][name], counters)["launches"]
+
+    # the few-shot path's own K2 shapes (the support instance's 32 picks, the
+    # 20,000-point aggregator) and its K1 table, captured from one support and
+    # one scene outside the counted run; each K2 row's launches are those the
+    # counted driver run made at that row's shape
+    from geoformer_tpu_torch.data.episodic import FSInstDataset
+    from geoformer_tpu_torch.weights import load_jax_checkpoint
+
+    fs_cfg = data["cfgs"]["test_fs"]
+    fs_engine = Engine(fs_cfg, few_shot=True,
+                       state_dict=load_jax_checkpoint(data["paths"]["test_fs"]["ckpt"]))
+    fs_data = FSInstDataset(fs_cfg, "val")
+    _, active, scene_batch = next(fs_data.test_batches())
+    support = fs_data.load_support_sets()[0][active[0]][0]
+    fs_inputs, fs_knn_inputs = [], []
+    fps.capture, select_min_k_cand.capture = fs_inputs, fs_knn_inputs
+    fs_engine.process_support(fs_data.support_batch(*support))
+    fs_engine.encode_scene(scene_batch)
+    fps.capture = select_min_k_cand.capture = None
+    del fs_engine
+    torch.cuda.empty_cache()
+    # K1 on the few-shot path: the shape held above, and exact at this table too
+    d2, cand, k = fs_knn_inputs[0]
+    if len(fs_knn_inputs) != 1 or [*d2.shape, k] != k1_shape:
+        fail(f"few-shot knn_select shape {[*d2.shape, k]} x {len(fs_knn_inputs)}, held {k1_shape}")
+    if not all(torch.equal(bits(torch, g), bits(torch, w)) for g, w in zip(
+            select_min_k_cand(d2, cand, k), select_min_k_cand_plain(d2, cand, k))):
+        fail("knn_select kernel disagrees with its plain version on the few-shot path's table")
+    del d2, cand, fs_knn_inputs
+    torch.cuda.empty_cache()
+    fs_by_shape = by_path["driver_test_fs"]["fps_by_shape"]
+    fs_rows = [fps_row(torch, fps, fps_plain, inp,
+                       fs_by_shape.get(json.dumps([*inp[0].shape[:2], inp[2]]), 0))
+               for inp in fs_inputs]
+    shapes = [r["shape"] for r in fs_rows]
+    if shapes != [[1, 4096, 32], [1, fs_cfg.n_downsampling, fs_cfg.n_decode_point]]:
+        fail(f"few-shot fps shapes {shapes}")
+    if any(r["launches"] <= 0 for r in fs_rows) or sum(
+            r["launches"] for r in fs_rows) != by_path["driver_test_fs"]["fps"]:
+        fail(f"few-shot fps launches by shape {fs_by_shape} do not match the held shapes {shapes}")
+
+    # ---------------- K3 at the probe's shape and at the forward's fg gather ----------------
+    px, pidx = (torch.from_numpy(a).cuda() for a in gather_probe.probe_inputs())
+    k3_row = row_gather_row(torch, row_gather, row_gather_plain, px, pidx, probe_launches)
+    # the forward gathers with PyTorch's indexing, so this shape's launches
+    # are what the three counted model paths read off K3's counter
+    k3_large = row_gather_row(
+        torch, row_gather, row_gather_plain, gather_x, gather_idx,
+        sum(by_path[p]["row_gather"] for p in ("eval_batch", "driver_test", "driver_test_fs")))
+
+    k2_row["other_shapes"] = fs_rows
+    k3_row["other_shapes"] = [k3_large]
+    rows = [k1_row, k2_row, k3_row]
+    for row in rows:
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()
+                                   if c.get(row["name"])}
+    k2_row["launches_by_path_and_shape"] = {p: c["fps_by_shape"] for p, c in by_path.items()
+                                            if c.get("fps_by_shape")}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,12 @@
 
 Layout mirrors the JAX package: ``ops/`` (voxelize, sparse conv, FPS, ball
 query, radius graph, geodesic, NMS), ``models/`` (blocks, U-Net, aggregator,
-decoder, mask head, GeoFormer), ``config.py``, ``engine.py`` and
+decoder, mask head, GeoFormer, GeoFormerFS), ``data/`` (eval batches),
+``evaluation/`` (ScanNet AP), ``utils/``, ``config.py``, ``engine.py`` and
 ``weights.py``. Hand-written Hopper kernels live in ``csrc/`` and their
-wrappers in ``kernels/``. Nothing here imports JAX or the JAX package.
+wrappers in ``kernels/``; the eval drivers are ``cli/test.py`` and
+``cli/test_fs.py``, the row-gather probe ``tools/gather_probe.py``. Nothing
+here imports JAX or the JAX package.
 """
 
 import torch

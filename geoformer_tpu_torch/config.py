@@ -1,4 +1,5 @@
-"""Flat config (port of geoformer_tpu/utils/config.py: defaults + load_config).
+"""Flat config (port of geoformer_tpu/utils/config.py: defaults, load_config,
+config_from_args).
 
 A copy, not an import: the port does not import the JAX package. ``yaml`` is
 imported only inside the file reader, so a caller that builds its config
@@ -8,8 +9,11 @@ PyYAML.
 
 from __future__ import annotations
 
+import argparse
 import copy
 from types import SimpleNamespace
+
+from geoformer_tpu_torch import default_device
 
 _DEFAULTS = dict(
     # GENERAL
@@ -178,6 +182,41 @@ TEST_GEOFORMER_SCANNET = dict(
 )
 
 
+# config/test_geoformer_fs_scannet.yaml as Python values, likewise
+TEST_GEOFORMER_FS_SCANNET = dict(
+    # GENERAL
+    task="test", manual_seed=123,
+    # META
+    train_fold=0, cvfold=1, k_shot=1, similarity_thresh=0.2, fix_support=True, run_num=10,
+    type_support="fullscene_fold", file_support="support_vectors_df", test_model="geoformer",
+    # DETR
+    dec_nlayers=4, dec_dim=64, dec_ffn_dim=64, dec_dropout=0.1, dec_nhead=4,
+    n_downsampling=20000, n_decode_point=2048, n_query_points=128,
+    base_lr=0.0005, warm_lr=0.000001, warm_lr_epochs=3, final_lr=0.000001,
+    lr_scheduler="cosine",
+    # DATA
+    data_root="data", dataset="scannetv2", classes=13, ignore_label=-100,
+    input_channel=3, scale=50, batch_size=1, full_scale=[128, 512],
+    full_scale_support=[64, 128], max_npoint=250000, mode=4,
+    # STRUCTURE
+    model_name="geoformer", m=16, block_residual=True, block_reps=2, use_coords=True,
+    # TRAIN
+    start_epoch=0, prepare_epochs=40, epochs=200, num_workers=1, optim="Adam", lr=0.01,
+    fix_module=["input_conv", "unet", "output_layer", "semantic", "semantic_linear",
+                "set_aggregator", "similarity_net", "pos_embedding", "mask_tower",
+                "controller", "encoder_to_decoder_projection", "query_projection", "decoder"],
+    # TEST
+    split="val", test_seed=567, TEST_NMS_THRESH=0.05, TEST_SCORE_THRESH=0.5,
+    TEST_NPOINT_THRESH=500, eval=True,
+    # TPU
+    tpu_max_points=250000, tpu_max_voxels=262144, tpu_max_fg_points=131072,
+    tpu_train_subsample=30000, tpu_max_instances=64, tpu_knn_neighbors=64,
+    tpu_geodesic_radius=0.05, tpu_geodesic_steps_train=32, tpu_geodesic_steps_eval=64,
+    tpu_brick_occupancy=64, tpu_spatial_shape=1024, tpu_unet_depth=7,
+    tpu_ball_radius=0.2, tpu_ball_nsample=64,
+)
+
+
 class Config(SimpleNamespace):
     """Flat config namespace; attribute access like the reference's cfg."""
 
@@ -209,3 +248,35 @@ def load_config(yaml_path: str | None = None, **overrides) -> Config:
 def scannet_eval_config(**overrides) -> Config:
     """config/test_geoformer_scannet.yaml built from Python values."""
     return load_config(None, **{**copy.deepcopy(TEST_GEOFORMER_SCANNET), **overrides})
+
+
+def scannet_fs_eval_config(**overrides) -> Config:
+    """config/test_geoformer_fs_scannet.yaml built from Python values."""
+    return load_config(None, **{**copy.deepcopy(TEST_GEOFORMER_FS_SCANNET), **overrides})
+
+
+def config_from_args(argv=None) -> Config:
+    """The eval drivers' command line: that of the JAX package's test.py and
+    test_fs.py plus ``--device`` (the card when omitted; without one this
+    raises, before the config file is read). The JAX profiler hook ``--profile_dir`` has no counterpart
+    here."""
+    p = argparse.ArgumentParser("geoformer_tpu_torch")
+    p.add_argument("--config", type=str, default=None, help="path to config yaml")
+    p.add_argument("--pretrain", type=str, default=None, help="path to pretrain checkpoint")
+    p.add_argument("--resume", type=str, default=None, help="path to resume checkpoint")
+    p.add_argument("--output_path", type=str, default="exp")
+    p.add_argument("--exp_name", type=str, default="default")
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--use_backbone", action="store_true")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; default: the CUDA card (no silent CPU fallback)")
+    args = p.parse_args(argv)
+    default_device(args.device)  # raises without a card, before any file is read
+    return load_config(
+        args.config,
+        pretrain=args.pretrain,
+        resume=args.resume,
+        output_path=args.output_path,
+        exp_name=args.exp_name,
+        device=args.device,
+    )

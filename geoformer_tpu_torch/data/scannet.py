@@ -1,0 +1,107 @@
+"""ScanNetV2 dataset: scene loading, label remap, padded batches.
+
+Reference: datasets/scannetv2.py (fold constants), datasets/scannetv2_inst.py
+(InstDataset). Scene files are per-scene .npy arrays [N, 8]:
+(x, y, z, r, g, b, semantic_label in nyu-remapped 0-19/-100, instance_id).
+
+The port's copy of geoformer_tpu/data/scannet.py (host numpy code, kept
+name for name), eval side: training scenes and batches come with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from geoformer_tpu_torch.data.augment import compact_instance_labels
+from geoformer_tpu_torch.data.collate import pad_batch
+
+FOLD0 = [2, 3, 4, 7, 9, 11, 12, 13, 18]
+FOLD1 = [5, 6, 8, 10, 14, 15, 16, 17, 19]
+FOLD2 = [2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19]
+FOLD = {0: FOLD0, 1: FOLD1, 2: FOLD2}
+
+FOLD0_NAME = ["cabinet", "bed", "chair", "door", "bookshelf", "counter", "desk", "curtain", "bathtub"]
+FOLD1_NAME = [
+    "otherfurniture", "picture", "refridgerator", "shower curtain", "sink",
+    "sofa", "table", "toilet", "window",
+]
+FOLD_NAME = {0: FOLD0_NAME, 1: FOLD1_NAME}
+
+BENCHMARK_SEMANTIC_LABELS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39]
+
+
+def remap_semantic_labels(label: np.ndarray, fold_classes: list[int]) -> np.ndarray:
+    """4-way remap (scannetv2_inst.py:314-324): 0 floor, 1 wall, 2 unannotated,
+    3 test-candidate (classes outside the fold), 4.. fold classes in order."""
+    out = np.full_like(label, -1)
+    out[label == 0] = 0
+    out[label == 1] = 1
+    for idx, cls in enumerate(fold_classes):
+        out[label == cls] = idx + 4
+    out[label == -100] = 2
+    out[out == -1] = 3
+    return out
+
+
+class InstDataset:
+    """Fully-supervised dataset (scannetv2_inst.py:24-455)."""
+
+    def __init__(self, cfg, split_set="train"):
+        self.cfg = cfg
+        self.split_set = split_set
+        self.scale = cfg.scale
+        self.full_scale = cfg.full_scale
+        self.max_npoint = cfg.max_npoint
+        root = os.path.join(cfg.data_root, cfg.dataset)
+        with open(os.path.join(root, f"scannetv2_{split_set}.txt")) as f:
+            self.scan_names = f.read().splitlines()
+        scenes_dir = os.path.join(root, "scenes")
+        files = os.listdir(scenes_dir) if os.path.isdir(scenes_dir) else []
+        self.file_names = sorted(
+            os.path.join(scenes_dir, f)
+            for f in files
+            if f.split(".")[0][:12] in set(self.scan_names)
+        )
+        self.fold_classes = FOLD[cfg.cvfold]
+
+    def __len__(self):
+        return len(self.file_names)
+
+    def load_raw(self, index):
+        data = np.load(self.file_names[index])
+        return data[:, :3], data[:, 3:6], data[:, 6].astype(np.int32), data[:, 7].astype(np.int32)
+
+    def build_scene(self, index, rng, training: bool):
+        if training:
+            raise NotImplementedError("training scenes (augmentation, crop) are not ported yet")
+        xyz_origin, rgb, label, instance_label = self.load_raw(index)
+        xyz_middle = xyz_origin
+        xyz = xyz_middle * self.scale
+        xyz -= xyz.min(0)
+
+        label = remap_semantic_labels(label, self.fold_classes)
+        instance_label = instance_label.copy()
+        instance_label[label <= 3] = -100
+        instance_label = compact_instance_labels(instance_label)
+
+        return {
+            "points": xyz_middle.astype(np.float32),
+            "feats": rgb.astype(np.float32),
+            "coords": np.floor(xyz).astype(np.int32),
+            "labels": label.astype(np.int32),
+            "instance_labels": instance_label.astype(np.int32),
+        }
+
+    def train_batches(self, batch_size, seed=0, epochs=1):
+        raise NotImplementedError("training batches are not ported yet")
+
+    def test_batches(self):
+        """Generator of (scene_name, padded batch of 1) for eval."""
+        rng = np.random.default_rng(self.cfg.test_seed)
+        for i in range(len(self)):
+            name = os.path.basename(self.file_names[i]).split(".")[0][:12]
+            scene = self.build_scene(i, rng, False)
+            yield name, pad_batch([scene], self.cfg.tpu_max_points, rng)

@@ -1,9 +1,12 @@
 """Eval engine (port of the eval half of geoformer_tpu/engine.py).
 
-``Engine(cfg)`` builds the supervised GeoFormer on the card (or on the
-device the caller names) and ``eval_batch`` runs the eval forward plus the
-per-scene matrix NMS that test.py applies after it (test.py:40-43). The
-training step waits for the training slice.
+``Engine(cfg)`` builds the supervised GeoFormer, or with ``few_shot=True``
+GeoFormerFS, on the card (or on the device the caller names). The supervised
+engine's ``eval_batch`` runs the eval forward plus the per-scene matrix NMS
+that the test driver applies after it (test.py:40-43); the few-shot engine
+is driven through its stages (``process_support``, ``encode_scene``,
+``decode_with_support``, the last with test_fs.py:104-108's NMS over one
+category). The training step waits for the training slice.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 
 from geoformer_tpu_torch import default_device, set_fp32_precision
 from geoformer_tpu_torch.models.geoformer import GeoFormer, ModelConfig
+from geoformer_tpu_torch.models.geoformer_fs import GeoFormerFS
 from geoformer_tpu_torch.ops.nms import matrix_nms
 from geoformer_tpu_torch.weights import random_state_dict
 
@@ -20,37 +24,77 @@ _DTYPES = {"coords": torch.long, "point_mask": torch.bool}
 
 
 class Engine:
-    def __init__(self, cfg, device=None, state_dict=None, seed: int = 0):
+    def __init__(self, cfg, device=None, state_dict=None, seed: int = 0,
+                 few_shot: bool = False):
         """Raises when no device is given and CUDA is absent. Without a
         state_dict the weights are seeded random (``random_state_dict``)."""
         self.device = default_device(device)
         set_fp32_precision()
         self.cfg = cfg
+        self.few_shot = few_shot
         self.mc = ModelConfig.from_cfg(cfg)
-        self.model = GeoFormer(self.mc)
+        self.model = GeoFormerFS(self.mc) if few_shot else GeoFormer(self.mc)
         if state_dict is None:
             state_dict = random_state_dict(self.model, seed)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
 
-    @torch.no_grad()
-    def eval_batch(self, batch: dict) -> dict:
-        """Eval forward on a [B, ...] batch: the JAX forward's outputs
-        (semantic_scores, voxel_stats, fg_idx, fg_valid, query_valid,
-        cls_logits, mask_logits, proposals) plus ``nms``: per-scene
-        matrix-NMS keep flags and decayed scores [B, Q]."""
+    def to_device(self, batch: dict) -> dict:
+        """A numpy (or tensor) batch as tensors on the engine's device."""
         tensors = {}
         for k, v in batch.items():
             t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
             tensors[k] = t.to(self.device, dtype=_DTYPES.get(k, t.dtype))
-        out = self.model(tensors)
-        props = out["proposals"]
+        return tensors
+
+    def _nms(self, props: dict, classes) -> dict:
+        """Per-scene matrix NMS -> keep flags and decayed scores [B, Q]."""
         keeps, scores = [], []
         for i in range(props["scores"].shape[0]):
-            keep, sc = matrix_nms(props["masks"][i], props["scores"][i], props["classes"][i],
+            keep, sc = matrix_nms(props["masks"][i], props["scores"][i], classes[i],
                                   props["keep"][i], sigma=2.0,
                                   final_score_thresh=self.cfg.TEST_NMS_THRESH)
             keeps.append(keep)
             scores.append(sc)
-        out["nms"] = {"keep": torch.stack(keeps), "scores": torch.stack(scores)}
+        return {"keep": torch.stack(keeps), "scores": torch.stack(scores)}
+
+    @torch.no_grad()
+    def eval_batch(self, batch: dict) -> dict:
+        """Supervised eval forward on a [B, ...] batch: the JAX forward's
+        outputs (semantic_scores, voxel_stats, fg_idx, fg_valid, query_valid,
+        cls_logits, mask_logits, proposals) plus ``nms``: per-scene
+        matrix-NMS keep flags and decayed scores [B, Q]."""
+        if self.few_shot:
+            raise ValueError("the few-shot engine runs process_support, encode_scene "
+                             "and decode_with_support")
+        out = self.model(self.to_device(batch))
+        out["nms"] = self._nms(out["proposals"], out["proposals"]["classes"])
         return out
+
+    # ---------------- few-shot stages ----------------
+
+    @torch.no_grad()
+    def process_support(self, support_batch: dict) -> torch.Tensor:
+        """Support batch -> [B, 2m] embedding."""
+        return self.model.process_support(self.to_device(support_batch))
+
+    @torch.no_grad()
+    def encode_scene(self, scene_batch: dict) -> dict:
+        """Scene batch -> the support-independent cache (plus the batch's
+        point_mask, pc_mins and pc_maxs, which the decode needs)."""
+        tb = self.to_device(scene_batch)
+        cache = self.model.encode_scene(tb)
+        cache.update(point_mask=tb["point_mask"], pc_mins=tb["pc_mins"], pc_maxs=tb["pc_maxs"])
+        return cache
+
+    @torch.no_grad()
+    def decode_with_support(self, cache: dict, support_embeddings) -> dict:
+        """One decode of a cached scene [B=1 or more] against support
+        embeddings [B, 2m]: proposals with the matrix NMS over one category
+        applied (``keep`` is the NMS's)."""
+        emb = torch.as_tensor(support_embeddings, dtype=torch.float32, device=self.device)
+        dec = self.model.decode_with_support(cache, emb, cache["pc_mins"], cache["pc_maxs"])
+        props = self.model.proposals(dec, cache["point_mask"])
+        nms = self._nms(props, torch.zeros_like(props["scores"], dtype=torch.long))
+        return {"masks": props["masks"], "scores": props["scores"], "keep": nms["keep"],
+                "similarity": dec["similarity"], "mask_logits": dec["mask_logits"]}

@@ -7,7 +7,8 @@ together, into ``build/`` at the repository root (listed in .gitignore). The
 library's file name carries a hash of the sources, so an edited source
 rebuilds.
 
-Wrappers (``kernels/fps.py``, ``kernels/knn_select.py``) take the plain
+Wrappers (``kernels/fps.py``, ``kernels/knn_select.py``,
+``kernels/row_gather.py``) take the plain
 PyTorch version for CPU tensors and launch the kernel for CUDA tensors; they
 raise if the kernel cannot run, and never fall back.
 """
@@ -102,6 +103,8 @@ def lib() -> ctypes.CDLL:
         so.fps_launch.restype = i
         so.fps_max_points.argtypes = []
         so.fps_max_points.restype = i
+        so.row_gather_launch.argtypes = [p, p, p, i, i, p]
+        so.row_gather_launch.restype = i
         so.error_string.argtypes = [i]
         so.error_string.restype = ctypes.c_char_p
         _lib = so

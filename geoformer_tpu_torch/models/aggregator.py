@@ -1,4 +1,4 @@
-"""Set aggregator: FPS -> ball group -> SharedMLP -> max pool (port of
+"""Set aggregator: FPS -> ball group -> SharedMLP -> max or avg pool (port of
 geoformer_tpu/models/aggregator.py)."""
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ class SharedMLP(nn.Module):
 
 
 class SetAggregator(nn.Module):
-    """group_points + mlp + max pool; FPS indices come from ``group`` so the
+    """group_points + mlp + pool; FPS indices come from ``group`` so the
     caller reuses them (query selection and geodesic seeds)."""
 
     def __init__(self, in_dim: int, mlp_dims: Sequence[int], radius: float = 0.2,
@@ -55,9 +55,15 @@ class SetAggregator(nn.Module):
                                          cell_cap=self.ball_cell_cap)
         return new_xyz, torch.cat([gx, gf], dim=-1), gx, inds, inds_valid, hit
 
-    def forward(self, grouped, group_mask):
-        """grouped [B,K,ns,3+C] -> [B,K,mlp[-1]], max-pooled over valid slots."""
+    def forward(self, grouped, group_mask, pooling: str = "max"):
+        """grouped [B,K,ns,3+C] -> [B,K,mlp[-1]], pooled over valid slots: the
+        max (0 for an empty group) or the mean (divisor at least 1)."""
         h = self.mlp(grouped, group_mask)
-        neg = torch.finfo(h.dtype).min
-        h = torch.where(group_mask[..., None], h, neg).amax(dim=2)
-        return torch.where(group_mask.any(dim=2)[..., None], h, 0.0)
+        if pooling == "max":
+            neg = torch.finfo(h.dtype).min
+            h = torch.where(group_mask[..., None], h, neg).amax(dim=2)
+            return torch.where(group_mask.any(dim=2)[..., None], h, 0.0)
+        if pooling == "avg":
+            m = group_mask.to(h.dtype)[..., None]
+            return (h * m).sum(dim=2) / m.sum(dim=2).clamp(min=1.0)
+        raise ValueError(pooling)

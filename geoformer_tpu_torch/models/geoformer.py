@@ -1,6 +1,6 @@
 """GeoFormer, fully supervised, eval forward (port of
 geoformer_tpu/models/geoformer.py: ModelConfig, pack_by_mask,
-strided_pack_by_mask, GeoFormer eval, generate_proposal).
+strided_pack_by_mask, GeoFormerBase, GeoFormer eval, generate_proposal).
 
 voxelize -> sparse U-Net -> semantic head -> fg packing -> mask tower ->
 set aggregator (strided subsample + FPS + ball group) -> radius kNN +
@@ -178,8 +178,9 @@ def strided_pack_by_mask(mask: torch.Tensor, capacity: int):
     return idx, i[None, :] < n.clamp(max=capacity)[:, None]
 
 
-class GeoFormer(nn.Module):
-    """Fully-supervised GeoFormer, eval forward."""
+class GeoFormerBase(nn.Module):
+    """Submodules and stages shared by the supervised and the few-shot
+    model (the JAX GeoFormerBase)."""
 
     def __init__(self, mc: ModelConfig):
         super().__init__()
@@ -202,11 +203,6 @@ class GeoFormer(nn.Module):
                                           mc.dec_ffn_dim, mc.dec_dropout)
         _, _, num_gen = dynamic_param_sizes(m, use_coords=True)
         self.controller_head = Controller(mc.dec_dim, m, num_gen)
-        self.encoder_to_decoder_projection = GenericMLP(
-            agg_dim, (2 * m,), mc.dec_dim, norm="bn", output_use_activation=True,
-            output_use_norm=True, output_use_bias=False)
-        self.detr_sem_head = GenericMLP(mc.dec_dim, (mc.dec_dim, mc.dec_dim), mc.classes,
-                                        norm="bn")
         self.geodesic_passes = []  # (coarse sweeps, fine sweeps) per scene, last forward
         # a dict to collect per-stage wall ms of the next forwards (each stage
         # ends in a device synchronize); None = off, no synchronizing
@@ -322,10 +318,12 @@ class GeoFormer(nn.Module):
         ra, rb = self._pos_range(pc_mins, pc_maxs)
         return self.pos_embedding(geo3.reshape(b, q * k, 3), ra, rb).reshape(b, q, k, -1)
 
-    def run_decoder(self, context_locs, context_feats, context_valid, geo_dist, context_inds,
-                    pc_mins, pc_maxs):
+    def run_decoder(self, enc2dec, context_locs, context_feats, context_valid, geo_dist,
+                    context_inds, pc_mins, pc_maxs):
+        """``enc2dec`` is the model's own encoder_to_decoder_projection (2m
+        wide in the supervised model, 6m in the few-shot one)."""
         q = self.mc.n_query_points
-        ctx_feats = self.encoder_to_decoder_projection(context_feats, context_valid)
+        ctx_feats = enc2dec(context_feats, context_valid)
         query_locs = context_locs[:, :q]
         query_valid = context_valid[:, :q]
         ra, rb = self._pos_range(pc_mins, pc_maxs)
@@ -338,11 +336,12 @@ class GeoFormer(nn.Module):
 
     # ---------------- mask head ----------------
 
-    def get_mask_prediction(self, x, geo_dist, mask_feats, fg_locs, fg_valid, query_locs,
-                            query_valid):
-        """One decoder layer's output x [B,Q,d] -> cls logits [B,Q,classes],
-        dynamic-conv mask logits [B,Q,F] (-1e4 at pad fg slots)."""
-        cls_logits = self.detr_sem_head(x, query_valid)
+    def get_mask_prediction(self, sem_head, x, geo_dist, mask_feats, fg_locs, fg_valid,
+                            query_locs, query_valid):
+        """One decoder layer's output x [B,Q,d] -> cls logits [B,Q,classes]
+        (None without a ``sem_head``), dynamic-conv mask logits [B,Q,F]
+        (-1e4 at pad fg slots)."""
+        cls_logits = sem_head(x, query_valid) if sem_head is not None else None
         params = self.controller_head(x, query_valid)
         w1, b1, w2, b2 = parse_dynamic_params(params, self.mc.m, use_coords=True)
         mask_logits = torch.stack([
@@ -351,6 +350,18 @@ class GeoFormer(nn.Module):
             for i in range(x.shape[0])])
         mask_logits = torch.where(fg_valid[:, None, :], mask_logits, -1e4)
         return cls_logits, mask_logits
+
+
+class GeoFormer(GeoFormerBase):
+    """Fully-supervised GeoFormer, eval forward."""
+
+    def __init__(self, mc: ModelConfig):
+        super().__init__(mc)
+        self.encoder_to_decoder_projection = GenericMLP(
+            2 * mc.m, (2 * mc.m,), mc.dec_dim, norm="bn", output_use_activation=True,
+            output_use_norm=True, output_use_bias=False)
+        self.detr_sem_head = GenericMLP(mc.dec_dim, (mc.dec_dim, mc.dec_dim), mc.classes,
+                                        norm="bn")
 
     def forward(self, batch):
         """Eval forward. batch: points [B,P,3], feats [B,P,C], coords
@@ -379,13 +390,14 @@ class GeoFormer(nn.Module):
                                       n_radius_window_overflow=graph_wovf)
 
         dec_outputs, query_locs, query_valid = self.run_decoder(
-            context_locs, context_feats, context_valid, geo_dist, context_inds,
-            batch["pc_mins"], batch["pc_maxs"])
+            self.encoder_to_decoder_projection, context_locs, context_feats, context_valid,
+            geo_dist, context_inds, batch["pc_mins"], batch["pc_maxs"])
         outputs["query_valid"] = query_valid
         self._stage("decoder")
 
         cls_logits, mask_logits = self.get_mask_prediction(
-            dec_outputs[-1], geo_dist, mask_feats, fg_locs, fg_valid, query_locs, query_valid)
+            self.detr_sem_head, dec_outputs[-1], geo_dist, mask_feats, fg_locs, fg_valid,
+            query_locs, query_valid)
         self._stage("mask_head")
         outputs["cls_logits"] = cls_logits[None]  # [1,B,Q,classes]
         outputs["mask_logits"] = mask_logits[None]  # [1,B,Q,F]
@@ -418,9 +430,18 @@ def generate_proposal(mask_logits, cls_logits, fg_idx, fg_valid, sem_scores_fg, 
     sem_scores_q = torch.gather(sem_q, 2, cls_pred[..., None])[..., 0]
     scores = mask_scores * torch.sqrt(cls_scores) * sem_scores_q
     keep = (cls_pred >= 4) & (npoints >= npoint_thresh) & (mask_scores >= score_thresh)
-    # fg_idx is a permutation prefix: the scatter indices are unique
-    masks = torch.zeros(b, q, p, dtype=torch.bool, device=mask_logits.device)
+    masks = scatter_fg_masks(mask_bool, fg_idx, p)
+    return {"masks": masks, "scores": scores, "classes": cls_pred, "keep": keep}
+
+
+def scatter_fg_masks(mask_bool, fg_idx, p: int):
+    """mask_bool [B,Q,F] over the packed fg slots -> [B,Q,P] at point
+    resolution. fg_idx [B,F] is a prefix of a permutation of [0, P), so the
+    scatter indices are unique and in bounds (the JAX code's p + 1 sink
+    column is never reached)."""
+    b, q, _ = mask_bool.shape
+    masks = torch.zeros(b, q, p, dtype=torch.bool, device=mask_bool.device)
     bidx = torch.arange(b, device=masks.device)[:, None, None]
     qidx = torch.arange(q, device=masks.device)[None, :, None]
     masks[bidx, qidx, fg_idx[:, None, :]] = mask_bool
-    return {"masks": masks, "scores": scores, "classes": cls_pred, "keep": keep}
+    return masks

@@ -1,0 +1,1 @@
+"""Stand-alone tools of the port (counterparts of the repository's tools/)."""

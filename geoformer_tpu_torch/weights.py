@@ -12,11 +12,16 @@ state_dict leaf by leaf:
   LayerNorm scale/bias, SimpleNorm alpha/bias, gauss_B) keeps its name and
   layout.
 
-Upstream PyTorch checkpoints reach the port through
-tools/convert_reference_checkpoint.py and then ``from_jax_variables``.
+``to_jax_variables`` is the inverse, and ``save_jax_checkpoint`` writes the
+msgpack file layout that ``load_jax_checkpoint`` and the JAX package's
+``load_checkpoint`` both read, so a checkpoint moves between the two
+packages either way. Importing an upstream PyTorch checkpoint directly is
+not wired yet.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -67,6 +72,56 @@ def load_jax_checkpoint(path: str) -> dict[str, torch.Tensor]:
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
     return from_jax_variables({c: tree.get(c, {}) for c in COLLECTIONS})
+
+
+def _collection(name: str) -> str:
+    return {"mean": "batch_stats", "var": "batch_stats", "gauss_B": "constants"}.get(
+        name, "params")
+
+
+def to_jax_variables(model: torch.nn.Module) -> dict:
+    """The model's state_dict as a JAX variable tree of numpy leaves: the
+    inverse of ``from_jax_variables``. The head counts that un-flatten the
+    q/k/v projections come from the model's attention modules."""
+    from geoformer_tpu_torch.models.blocks import MultiHeadSelfAttention
+
+    heads = {f"{prefix}.{p}": mod.nhead for prefix, mod in model.named_modules()
+             if isinstance(mod, MultiHeadSelfAttention) for p in "qkv"}
+    tree = {c: {} for c in COLLECTIONS}
+    for key, t in model.state_dict().items():
+        *parent, name = key.split(".")
+        a = t.detach().cpu().numpy()
+        h = heads.get(".".join(parent))
+        if name == "weight":  # Linear [out, in] -> Dense [in, out] / DenseGeneral [in, H, Dh]
+            a = a.T if h is None else a.T.reshape(a.shape[1], h, -1)
+            name = "kernel"
+        elif name == "bias" and h is not None:
+            a = a.reshape(h, -1)
+        node = tree[_collection(name)]
+        for part in parent:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return tree
+
+
+def save_jax_checkpoint(path: str, model: torch.nn.Module, epoch: int = 0) -> None:
+    """Write the model's weights as a flax msgpack checkpoint (a tree of
+    ``params``, ``batch_stats``, ``constants`` and ``epoch``; each array an
+    ext type 1 of (shape, dtype name, bytes), as flax.serialization packs
+    it). Arrays here stay far below msgpack's 2 GiB leaf limit, so flax's
+    chunked form is not needed."""
+    import msgpack
+
+    def default(x):
+        if isinstance(x, np.ndarray):
+            return msgpack.ExtType(1, msgpack.packb(
+                (x.shape, x.dtype.name, x.tobytes()), use_bin_type=True))
+        raise TypeError(f"cannot pack {type(x)}")
+
+    state = dict(to_jax_variables(model), epoch=int(epoch))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(state, default=default, strict_types=True))
 
 
 def random_state_dict(model: torch.nn.Module, seed: int = 0) -> dict[str, torch.Tensor]:

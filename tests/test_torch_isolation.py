@@ -1,14 +1,19 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package.
 
-Every module of geoformer_tpu_torch and chip_smoke (whose work runs only
-under ``if __name__ == "__main__":``) is imported in a fresh interpreter,
-which then lists what it loaded.
+Every module of geoformer_tpu_torch (its ``cli``, ``data``, ``evaluation``,
+``tools`` and ``utils`` subpackages included) and chip_smoke (whose work runs
+only under ``if __name__ == "__main__":``) is imported in a fresh
+interpreter, which then lists what it loaded. The port's entry points run on
+the card: without one, and without a device named, they raise.
 """
 
 import json
 import os
 import subprocess
 import sys
+
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -22,7 +27,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "geoformer_tpu", "tools",
-                                    "__graft_entry__"))
+                                    "__graft_entry__", "test", "test_fs"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -45,7 +50,15 @@ def test_port_and_chip_smoke_import_no_jax():
                 "geoformer_tpu_torch.models.pos_embedding",
                 "geoformer_tpu_torch.models.decoder", "geoformer_tpu_torch.models.dynamic_conv",
                 "geoformer_tpu_torch.models.geoformer", "geoformer_tpu_torch.kernels.fps",
-                "geoformer_tpu_torch.kernels.knn_select"}
+                "geoformer_tpu_torch.kernels.knn_select",
+                "geoformer_tpu_torch.kernels.row_gather",
+                "geoformer_tpu_torch.models.geoformer_fs", "geoformer_tpu_torch.synthetic",
+                "geoformer_tpu_torch.cli.test", "geoformer_tpu_torch.cli.test_fs",
+                "geoformer_tpu_torch.data.augment", "geoformer_tpu_torch.data.collate",
+                "geoformer_tpu_torch.data.scannet", "geoformer_tpu_torch.data.episodic",
+                "geoformer_tpu_torch.evaluation.gt", "geoformer_tpu_torch.evaluation.predictions",
+                "geoformer_tpu_torch.evaluation.scannet_eval",
+                "geoformer_tpu_torch.tools.gather_probe", "geoformer_tpu_torch.utils.logger"}
     assert expected <= set(res["modules"])
 
 
@@ -63,3 +76,17 @@ def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("module", ["cli.test", "cli.test_fs", "tools.gather_probe"])
+def test_entry_points_raise_without_a_card(module):
+    """No --device and no CUDA: the drivers and the probe raise before they
+    touch a file; they never move to the CPU on their own."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the entry points run on it")
+    main = importlib.import_module(f"geoformer_tpu_torch.{module}").main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config", "missing.yaml", "--pretrain", "missing.ckpt"]
+             if module.startswith("cli") else [])

@@ -9,7 +9,11 @@ directory that lacks the port's package. It
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from geoformer_tpu_torch/csrc into build/;
 3. checks the CUDA path against the CPU path on a small scene (same seeded
-   weights: fg indices equal, scores within 1e-3);
+   weights: fg indices equal, scores within 1e-3), then holds K1 and K2
+   bit-equal to their plain versions on the corner cases of their designs
+   (``kernel_edges``: kernels/edge_cases.py; K2's cluster size and K1's
+   exact-path rows printed per case) and times K2's chain of dependent picks
+   on an all-invalid scene, where no distance is updated;
 4. drives the main path, Engine.eval_batch (the supervised eval forward +
    matrix NMS), over N >= 2 synthetic 250,000-point scenes at the
    config/test_geoformer_scannet.yaml settings with seeded random weights,
@@ -21,7 +25,9 @@ directory that lacks the port's package. It
    the kernels' input tables;
 5. holds each kernel (K1 knn_select, K2 fps) against its plain PyTorch
    version on those captured main-path tables (exact equality), and times
-   kernel, plain version and library call with CUDA events;
+   kernel, plain version and library call with CUDA events (K1's row adds
+   the share of rows that took its exact path, K2's its cluster size and
+   its device time from torch.profiler, ``profiler_ms``);
 6. runs the row-gather probe (tools/gather_probe.py: kernel K3 and its plain
    version, all ``OK``);
 7. writes a synthetic dataset (4 scenes of 250,000 points, 2 of them val)
@@ -92,13 +98,14 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, flush=None) -> float:
+def device_ms(torch, fn, reps: int, flush=None, only=None) -> float:
     """Mean device time of fn() from torch.profiler (sum over the CUDA
-    kernels and copies it enqueues). For kernels of a few microseconds,
-    where a loop between two CUDA events runs at the host's launch pace and
-    not at the device's. With ``flush`` (a buffer several times the L2's
-    size) every call finds the L2 cold: the buffer is filled before it, and
-    the fill kernels' time is left out."""
+    kernels and copies it enqueues, or over those whose name holds
+    ``only``). For kernels of a few microseconds, where a loop between two
+    CUDA events runs at the host's launch pace and not at the device's.
+    With ``flush`` (a buffer several times the L2's size) every call finds
+    the L2 cold: the buffer is filled before it, and the fill kernels' time
+    is left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -116,6 +123,8 @@ def device_ms(torch, fn, reps: int, flush=None) -> float:
         if not any("FillFunctor" in k for k, _ in events):
             fail("the L2 flush's fill kernel was not found in the profile")
         events = [(k, t) for k, t in events if "FillFunctor" not in k]
+    if only is not None:
+        events = [(k, t) for k, t in events if only in k]
     total_us = sum(t for _, t in events)
     if total_us <= 0:
         fail("torch.profiler recorded no device time")
@@ -217,7 +226,19 @@ def kernel_row(torch, *, name, source, replaces, launches, kernel, plain, librar
     return row
 
 
+def exact_share(torch, select, d2, cand, k) -> float:
+    """Share of the rows of this table that take K1's exact path."""
+    rows = torch.zeros(1, dtype=torch.int32, device=d2.device)
+    select(d2, cand, k, exact_rows=rows)
+    return int(rows) / d2.shape[0]
+
+
 def fps_row(torch, fps, fps_plain, inputs, launches) -> dict:
+    """K2 at one shape. ``profiler_ms`` is the kernel's device time from
+    torch.profiler: at 32 picks a launch takes tens of microseconds, as
+    long as the wrapper's host time, and the CUDA-event loop reads both."""
+    from geoformer_tpu_torch.kernels.fps import cluster_size
+
     pts, msk, ns = inputs
     b, p, _ = pts.shape
     n_valid = int(msk.sum())
@@ -228,7 +249,9 @@ def fps_row(torch, fps, fps_plain, inputs, launches) -> dict:
         # points and mask read once, picks written once; 9 operations per
         # valid point and pick
         bytes_=b * p * 13 + b * ns * 4, ops=(ns - 1) * n_valid * 9,
-        shape=[b, p, ns], reps=10, plain_reps=2, n_valid=n_valid)
+        shape=[b, p, ns], reps=10, plain_reps=2, n_valid=n_valid,
+        cluster_size=cluster_size(p),
+        profiler_ms=device_ms(torch, lambda: fps(pts, msk, ns), 10, only="fps_kernel"))
 
 
 def row_gather_row(torch, row_gather, row_gather_plain, x, idx, launches) -> dict:
@@ -352,6 +375,46 @@ def small_reference(torch, cfg_mod, Engine, synthetic_batch) -> dict:
     return res
 
 
+def kernel_edges(torch) -> dict:
+    """K1 and K2 bit-equal to their plain versions on the corner cases of
+    their designs, and the time of K2's chain of picks with no distance to
+    update (an all-invalid scene of the main path's size)."""
+    from geoformer_tpu_torch.kernels.edge_cases import fps_cases, knn_cases
+    from geoformer_tpu_torch.kernels.fps import cluster_size, fps, fps_plain
+    from geoformer_tpu_torch.kernels.knn_select import (
+        select_min_k_cand,
+        select_min_k_cand_plain,
+    )
+
+    cases, bad = [], []
+    for name, d2, cand, k in knn_cases():
+        d2, cand = torch.from_numpy(d2).cuda(), torch.from_numpy(cand).cuda()
+        rows = torch.zeros(1, dtype=torch.int32, device="cuda")
+        got = select_min_k_cand(d2, cand, k, exact_rows=rows)
+        want = select_min_k_cand_plain(d2, cand, k)
+        ok = all(torch.equal(bits(torch, g), bits(torch, w)) for g, w in zip(got, want))
+        cases.append({"kernel": "knn_select", "case": name, "shape": [*d2.shape, k],
+                      "exact_rows": int(rows), "equal": ok})
+        bad += [] if ok else [f"knn_select {name}"]
+    for name, pts, msk, ns in fps_cases():
+        pts, msk = torch.from_numpy(pts).cuda(), torch.from_numpy(msk).cuda()
+        ok = torch.equal(fps(pts, msk, ns), fps_plain(pts, msk, ns))
+        cases.append({"kernel": "fps", "case": name, "shape": [*pts.shape[:2], ns],
+                      "cluster_size": cluster_size(pts.shape[1]), "equal": ok})
+        bad += [] if ok else [f"fps {name}"]
+    p, ns = 50000, 2048
+    pts = torch.zeros(1, p, 3, device="cuda")
+    none = torch.zeros(1, p, dtype=torch.bool, device="cuda")
+    floor_ms = time_ms(torch, lambda: fps(pts, none, ns), 10)
+    res = {"phase": "kernel_edges", "cases": cases,
+           "fps_chain": {"shape": [1, p, ns], "cluster_size": cluster_size(p), "ms": floor_ms,
+                         "us_per_pick": floor_ms * 1e3 / (ns - 1)}}
+    emit(res)
+    if bad:
+        fail(f"kernels disagree with their plain versions on {bad}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenes", type=int, default=2, help="full-size scenes to run (>= 2)")
@@ -390,9 +453,13 @@ def main(argv=None) -> int:
     so = kernels.build()
     emit({"phase": "build", "library": os.path.relpath(so, here),
           "sources": [os.path.basename(p) for p in kernels.sources()],
-          "seconds": time.time() - t0})
+          "seconds": time.time() - t0,
+          # registers, shared memory and spills of each kernel (ptxas -v)
+          "ptxas": [" ".join(line.split()) for line in kernels.build_log().splitlines()
+                    if "Compiling entry" in line or "Used" in line or "spill" in line]})
 
     small_reference(torch, cfg_mod, Engine, synthetic_batch)
+    edges = kernel_edges(torch)
 
     # ---------------- main path: full-width forwards ----------------
     cfg = cfg_mod.scannet_eval_config()
@@ -478,7 +545,7 @@ def main(argv=None) -> int:
         # what the selection must move: d2 read once, only the k picked ids of
         # cand (4 B each, not whole sectors), vals and ids written once
         bytes_=n * w * 4 + n * k * 4 + n * k * 8, ops=n * w * k, shape=[n, w, k],
-        reps=20, plain_reps=3)
+        reps=20, plain_reps=3, exact_share=exact_share(torch, select_min_k_cand, d2, cand, k))
     k1_shape = [n, w, k]
     del d2, cand, knn_inputs
     k2_shape = json.dumps([*fps_inputs[0][0].shape[:2], fps_inputs[0][2]])
@@ -527,6 +594,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # K1 on the few-shot path: the shape held above, and exact at this table too
     d2, cand, k = fs_knn_inputs[0]
+    k1_row["exact_share_few_shot"] = exact_share(torch, select_min_k_cand, d2, cand, k)
     if len(fs_knn_inputs) != 1 or [*d2.shape, k] != k1_shape:
         fail(f"few-shot knn_select shape {[*d2.shape, k]} x {len(fs_knn_inputs)}, held {k1_shape}")
     if not all(torch.equal(bits(torch, g), bits(torch, w)) for g, w in zip(
@@ -555,6 +623,9 @@ def main(argv=None) -> int:
         sum(by_path[p]["row_gather"] for p in ("eval_batch", "driver_test", "driver_test_fs")))
 
     k2_row["other_shapes"] = fs_rows
+    # the floor of K2's design beside its operations bound: the chain of
+    # dependent picks, timed with no distance to update
+    k2_row["chain_floor"] = edges["fps_chain"]
     k3_row["other_shapes"] = [k3_large]
     rows = [k1_row, k2_row, k3_row]
     for row in rows:

@@ -32,6 +32,8 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
     # no FMA contraction: FPS distances must round like the plain version
     "--fmad=false",
+    # registers, shared memory and spills of each kernel, kept in build_log()
+    "-Xptxas", "-v",
 ]
 
 _lib = None
@@ -75,20 +77,32 @@ def build() -> str:
             cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        objs = []
+        objs, logs = [], []
         for src, obj, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{log}")
             objs.append(obj)
+            logs.append(log)
         tmp_so = os.path.join(tmp, "lib.so")
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp_so],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        with open(out + ".log", "w") as f:
+            f.write("".join(logs))
         os.replace(tmp_so, out)
     build_seconds = time.time() - t0
     return out
+
+
+def build_log() -> str:
+    """What nvcc and ptxas printed when the current library was built."""
+    path = library_path() + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def lib() -> ctypes.CDLL:
@@ -97,12 +111,14 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         so = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        so.knn_select_launch.argtypes = [p, p, p, p, i, i, i, p]
+        so.knn_select_launch.argtypes = [p, p, p, p, i, i, i, p, p]
         so.knn_select_launch.restype = i
         so.fps_launch.argtypes = [p, p, p, i, i, i, p]
         so.fps_launch.restype = i
         so.fps_max_points.argtypes = []
         so.fps_max_points.restype = i
+        so.fps_cluster_size.argtypes = [i]
+        so.fps_cluster_size.restype = i
         so.row_gather_launch.argtypes = [p, p, p, i, i, p]
         so.row_gather_launch.restype = i
         so.error_string.argtypes = [i]

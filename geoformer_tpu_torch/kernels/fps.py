@@ -2,7 +2,10 @@
 
 The kernel (csrc/fps.cu) replaces the TPU kernel
 geoformer_tpu/ops/fps_pallas.py:_fps_kernel; the plain version mirrors
-geoformer_tpu/ops/fps.py:_fps_scene with the batch written out.
+geoformer_tpu/ops/fps.py:_fps_scene with the batch written out. The kernel
+samples each scene with one thread-block cluster of ``cluster_size(P)``
+CTAs, each holding a contiguous chunk of the points in its shared memory,
+which bounds P at ``kernels.lib().fps_max_points()``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ def fps_plain(points: torch.Tensor, mask: torch.Tensor, n_samples: int) -> torch
         last = torch.argmax(dist, dim=1)
         idxs[:, i] = last
     return idxs.to(torch.int32)
+
+
+def cluster_size(p: int) -> int:
+    """CTAs in the cluster that samples one scene of p points on the card."""
+    return kernels.lib().fps_cluster_size(p)
 
 
 def fps(points: torch.Tensor, mask: torch.Tensor, n_samples: int) -> torch.Tensor:

@@ -71,6 +71,7 @@ def _nontrivial_state_dict(model, seed):
             sd[key] = torch.from_numpy(rng.normal(0, 0.1, t.shape).astype(np.float32))
         elif name in ("var", "scale"):
             sd[key] = torch.from_numpy(rng.uniform(0.5, 1.5, t.shape).astype(np.float32))
+    sd["semantic.Dense_2.bias"][:4] -= 1.0  # background classes down: a foreground exists
     return sd
 
 
@@ -88,7 +89,11 @@ def cfgs(tiny_cfg, tmp_path_factory):
     make_synthetic_data(root=root, n_scenes=8, n_points=800, seed=0)
     jcfg = tiny_cfg.replace(
         data_root=root, tpu_brick_occupancy=0, cvfold=0, split="val", TEST_SCORE_THRESH=0.0,
-        TEST_NPOINT_THRESH=10, TEST_NMS_THRESH=1e-4, output_path=os.path.join(root, "exp"))
+        TEST_NPOINT_THRESH=10, TEST_NMS_THRESH=1e-4, output_path=os.path.join(root, "exp"),
+        # a two-level U-Net: the driver's protocol, not the model's depth, is
+        # what this file holds (test_torch_slice.py holds the forward at
+        # three levels), and the smaller graph traces and compiles faster
+        tpu_unet_depth=2)
     values = {k: v for k, v in jcfg.to_dict().items() if k != "config"}
     return jcfg, load_config(None, **values)
 
@@ -188,7 +193,7 @@ def forward(cfgs):
     command line on a checkpoint file that the JAX package wrote."""
     jcfg, tcfg = cfgs
     engine = Engine(tcfg, device="cpu")
-    engine.model.load_state_dict(_nontrivial_state_dict(engine.model, seed=8))
+    engine.model.load_state_dict(_nontrivial_state_dict(engine.model, seed=15))
     variables = to_jax_variables(engine.model)
     ckpt = os.path.join(jcfg.data_root, "weights.ckpt")
     jax_save_checkpoint(ckpt, dict(variables, epoch=1))

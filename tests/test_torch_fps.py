@@ -13,7 +13,8 @@ import jax.numpy as jnp
 
 from geoformer_tpu.ops.fps import _fps_scene
 from geoformer_tpu.ops.fps_pallas import fps_pallas_scene
-from geoformer_tpu_torch.kernels.fps import fps, fps_plain
+from geoformer_tpu_torch.kernels.edge_cases import fps_cases
+from geoformer_tpu_torch.kernels.fps import cluster_size, fps, fps_plain
 from geoformer_tpu_torch.ops.fps import furthest_point_sample
 
 
@@ -50,6 +51,32 @@ def test_plain_matches_pallas_interpret():
         np.testing.assert_array_equal(got[b], np.asarray(want))
 
 
+def _chunk_edge_cases():
+    """4,100 points: the card samples them on 4 CTAs of 1,025 (chunks of at
+    most 2,048 points, a power-of-two count). Lattice duplicates repeat
+    across every chunk edge, so the max ties across CTAs and the lowest
+    index must win; invalid runs straddle the edges."""
+    rng = np.random.default_rng(5)
+    grid = np.stack(np.meshgrid(*[np.arange(5.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    p = 4100
+    dup = np.tile(grid, (p // len(grid) + 1, 1))[:p].astype(np.float32)
+    mask = np.ones(p, bool)
+    for edge in range(1025, p, 1025):
+        mask[edge - 9:edge + 13] = False
+    pts = rng.normal(size=(p, 3)).astype(np.float32)
+    return {"duplicates": (dup, np.ones(p, bool)), "invalid_across_edges": (pts, mask)}
+
+
+@pytest.mark.parametrize("case", ["duplicates", "invalid_across_edges"])
+def test_plain_matches_jax_across_chunk_edges(case):
+    pts, mask = _chunk_edge_cases()[case]
+    got = fps_plain(torch.from_numpy(pts[None]), torch.from_numpy(mask[None]), 48)[0].numpy()
+    want_i, _ = _fps_scene(jnp.asarray(pts), jnp.asarray(mask), 48)
+    np.testing.assert_array_equal(got, np.asarray(want_i))
+    want = fps_pallas_scene(jnp.asarray(pts), jnp.asarray(mask), 48, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 def test_empty_scene_repeats_index_zero():
     pts, mask = _cases()
     got = fps_plain(torch.from_numpy(pts[3:4]), torch.from_numpy(mask[3:4]), 16)
@@ -76,3 +103,14 @@ def test_kernel_matches_plain_on_card(cuda, p):
     torch.cuda.synchronize()
     assert fps.launches == before + 1
     assert torch.equal(k, fps_plain(pts, mask, 64))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_corner_cases(cuda):
+    """Every corner case of the cluster design (kernels/edge_cases.py),
+    bit-equal to the plain version; the 4,100-point scene of the CPU test
+    runs on 4 CTAs, the 100,000-point one above the one-CTA design's cap."""
+    assert cluster_size(4100) == 4 and cluster_size(100000) == 16
+    for name, pts, mask, n in fps_cases():
+        pts, mask = torch.from_numpy(pts).to(cuda), torch.from_numpy(mask).to(cuda)
+        assert torch.equal(fps(pts, mask, n), fps_plain(pts, mask, n)), name

@@ -115,8 +115,7 @@ def setup(tiny_cfg, tmp_path_factory):
     jm = JaxGeoFormerFS(JaxModelConfig.from_cfg(jcfg))
     rngs = {"sample": jax.random.PRNGKey(0)}
 
-    def stages(m, sup, scn):
-        emb = m.process_support(sup)
+    def scene_stages(m, emb, scn):
         cache = m.encode_scene(scn, False)
         dec = m.decode_with_support(cache, emb, scn["pc_mins"], scn["pc_maxs"], False)
         props = jax_generate_fs_proposal(
@@ -124,17 +123,22 @@ def setup(tiny_cfg, tmp_path_factory):
             dec["fg_valid"], scn["point_mask"], logit_thresh=0.2,
             score_thresh=jcfg.TEST_SCORE_THRESH, npoint_thresh=jcfg.TEST_NPOINT_THRESH,
             sim_score_thresh=jcfg.similarity_thresh)
-        return emb, cache, dec, props
+        return cache, dec, props
 
-    run_stages = jax.jit(lambda v, s, q: jm.apply(v, s, q, rngs=rngs, method=stages))
-    jemb, jcache, jdec, jprops = jax.tree_util.tree_map(
-        np.array, run_stages(variables, support, scene))
+    # two programs, each traced and compiled once: the support embedding,
+    # and the scene's encode, decode and proposals on an embedding
     embed = jax.jit(lambda v, s: jm.apply(v, s, rngs=rngs, method=JaxGeoFormerFS.process_support))
+    run_scene = jax.jit(lambda v, e, q: jm.apply(v, e, q, rngs=rngs, method=scene_stages))
+
+    def run_stages(sup, scn):
+        emb = embed(variables, sup)
+        return jax.tree_util.tree_map(np.array, (emb, *run_scene(variables, emb, scn)))
+
+    jemb, jcache, jdec, jprops = run_stages(support, scene)
     return dict(jcfg=jcfg, tcfg=tcfg, ds=ds, scene=scene, support=support, small=small,
                 engine=engine, variables=variables, jm=jm, jemb=jemb, jcache=jcache, jdec=jdec,
                 jprops=jprops, embed=lambda b: np.asarray(embed(variables, b)),
-                stages=lambda sup, scn: jax.tree_util.tree_map(
-                    np.array, run_stages(variables, sup, scn)))
+                stages=run_stages)
 
 
 def test_fs_weights_map_every_leaf_both_ways(setup):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from geoformer_tpu.ops.knn_select_pallas import select_min_k_cand as jax_select
 from geoformer_tpu.ops.radius_graph import radius_knn as jax_radius_knn
+from geoformer_tpu_torch.kernels.edge_cases import knn_cases, knn_rows
 from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand, select_min_k_cand_plain
 from geoformer_tpu_torch.ops.radius_graph import radius_knn
 
@@ -55,6 +56,37 @@ def test_plain_matches_pallas_and_topk(n, w, k):
     np.testing.assert_array_equal(got_i[live], np.asarray(pal_i)[live])
 
 
+@pytest.mark.parametrize("w", [70, 648])
+def test_plain_matches_jax_at_threshold_ties_and_exhausted_rows(w):
+    """The corner rows of the card kernel's threshold design (ties at the
+    16th value, 8 equal values then dead lanes, fewer than 16 live lanes,
+    fully dead rows, the smallest values in one or in 15 threads' slots),
+    NaN and signed-zero rows left out: values exactly equal to lax.top_k and
+    to the Pallas kernel, ids to lax.top_k everywhere and to the Pallas
+    kernel on live lanes."""
+    d2 = knn_rows(w)
+    d2 = d2[~np.isnan(d2).any(1)]
+    cand = np.random.default_rng(w).integers(0, 1 << 20, d2.shape).astype(np.int32)
+    got_v, got_i = select_min_k_cand(torch.from_numpy(d2), torch.from_numpy(cand), 16)
+    neg, pos = jax.lax.top_k(-jnp.asarray(d2), 16)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(-neg))
+    np.testing.assert_array_equal(
+        got_i.numpy(), np.asarray(jnp.take_along_axis(jnp.asarray(cand), pos, axis=1)))
+    pal_v, pal_i = jax_select(jnp.asarray(d2), jnp.asarray(cand), 16, block_rows=64,
+                              interpret=True)
+    live = got_v.numpy() < 1e30
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(pal_v))
+    np.testing.assert_array_equal(got_i.numpy()[live], np.asarray(pal_i)[live])
+    assert (~live).any() and live.any()
+
+
+def _jit_exact(f, *args):
+    """f(*args) compiled by XLA without backend optimisation: one program,
+    with the rounding of op-by-op execution (no contracted multiply-adds)."""
+    return jax.jit(f).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
 def _scene(seed):
     rng = np.random.default_rng(seed)
     pts = np.concatenate([
@@ -72,9 +104,10 @@ def test_radius_knn_matches_jax(cap, k, div):
     """d2 and ids exactly equal to the JAX radius_knn with the Pallas
     selection (interpret mode), and the drop counters equal."""
     pts, mask = _scene(cap * k)
-    jd, ji, jdrop, jwin = jax_radius_knn(
-        jnp.asarray(pts[None]), jnp.asarray(mask[None]), 0.1, k, cell_cap=cap,
-        cell_div=div, dense_grid=256, select="pallas", with_stats=True)
+    jd, ji, jdrop, jwin = _jit_exact(
+        lambda p, m: jax_radius_knn(p, m, 0.1, k, cell_cap=cap, cell_div=div, dense_grid=256,
+                                    select="pallas", with_stats=True),
+        jnp.asarray(pts[None]), jnp.asarray(mask[None]))
     td, ti, tdrop, twin = radius_knn(
         torch.from_numpy(pts[None]), torch.from_numpy(mask[None]), 0.1, k, cell_cap=cap,
         cell_div=div, dense_grid=256, select="pallas")
@@ -103,3 +136,22 @@ def test_kernel_matches_plain_on_card(cuda, n, w, k):
     torch.cuda.synchronize()
     assert select_min_k_cand.launches == before + 1
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_corner_cases(cuda):
+    """Every corner case of the threshold design (kernels/edge_cases.py: ties
+    at the threshold, exhausted and dead rows, the smallest values in one
+    thread's slots or in 15, NaN and -0.0, W = 16, 70, 648, 1024, k = W),
+    bit-equal to the plain version; both of the kernel's paths run."""
+    exact = {}
+    for name, d2, cand, k in knn_cases():
+        d2, cand = torch.from_numpy(d2).to(cuda), torch.from_numpy(cand).to(cuda)
+        rows = torch.zeros(1, dtype=torch.int32, device=cuda)
+        kv, ki = select_min_k_cand(d2, cand, k, exact_rows=rows)
+        pv, pi = select_min_k_cand_plain(d2, cand, k)
+        assert torch.equal(kv.view(torch.int32), pv.view(torch.int32)), name
+        assert torch.equal(ki, pi), name
+        exact[name] = int(rows)
+    assert exact["w70_k70"] == exact["w1024_k1024"] == 32  # k > 32: every row
+    assert exact["w648_k16"] > 0 and exact["w648_k1"] == 0

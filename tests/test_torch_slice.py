@@ -2,10 +2,11 @@
 
 Both packages run on the CPU at tests/conftest.py:tiny_cfg with the
 rulebook sparse conv (tpu_brick_occupancy=0: bricks equal the rulebook path
-only while no brick overflows), on the same weights carried by
-weights.from_jax_variables. The JAX forward runs once per module (jitted);
-each stage of the port gets the JAX stage's inputs, so a stage is held on
-its own. Tolerances:
+only while no brick overflows), on the same weights: seeded in the port,
+carried to JAX by weights.to_jax_variables and back by
+weights.from_jax_variables. The JAX forward and its stages run once per
+module (one jit); each stage of the port gets the JAX stage's inputs, so a
+stage is held on its own. Tolerances:
 
 * float outputs after the U-Net and the heads: 1e-4 (f32 sums reassociated
   through 3 U-Net levels and the decoder);
@@ -32,7 +33,7 @@ from geoformer_tpu_torch.models.geoformer import GeoFormer, ModelConfig
 from geoformer_tpu_torch.ops.nms import matrix_nms
 from geoformer_tpu_torch.ops.radius_graph import radius_knn
 from geoformer_tpu_torch.synthetic import room_points
-from geoformer_tpu_torch.weights import from_jax_variables
+from geoformer_tpu_torch.weights import from_jax_variables, random_state_dict, to_jax_variables
 
 
 def _batch(cfg, seed=0):
@@ -53,25 +54,30 @@ def _batch(cfg, seed=0):
     }
 
 
-def _perturbed(variables, seed=1):
-    """Non-trivial BN statistics and norm parameters (init leaves them 0/1),
-    and a controller wide enough that the dynamic masks are not empty."""
+def _perturbed(model, seed=1):
+    """Seeded weights with non-trivial BN statistics and norm parameters
+    (random_state_dict leaves them 0/1), the background classes 0-3 of the
+    semantic head biased down so that a foreground exists, and a controller
+    wide enough that the dynamic masks are not empty."""
     rng = np.random.default_rng(seed)
+    sd = random_state_dict(model, seed)
+    for key, t in sd.items():
+        name = key.rsplit(".", 1)[-1]
+        if key == "controller_head.controller.weight":
+            sd[key] = t * 100.0
+        elif name in ("mean", "bias"):
+            sd[key] = torch.from_numpy(rng.normal(0, 0.1, t.shape).astype(np.float32))
+        elif name in ("var", "scale"):
+            sd[key] = torch.from_numpy(rng.uniform(0.5, 1.5, t.shape).astype(np.float32))
+    sd["semantic.Dense_2.bias"][:4] -= 0.5
+    return sd
 
-    def f(path, x):
-        name = str(path[-1].key)
-        x = np.asarray(x)
-        if name == "kernel" and str(path[-2].key) == "controller":
-            return x * 30.0
-        if name == "mean":
-            return rng.normal(0, 0.1, x.shape).astype(np.float32)
-        if name in ("var", "scale"):
-            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
-        if name == "bias":
-            return rng.normal(0, 0.1, x.shape).astype(np.float32)
-        return x
 
-    return jax.tree_util.tree_map_with_path(f, variables)
+def _jit_exact(f, *args):
+    """f(*args) compiled by XLA without backend optimisation: one program,
+    with the rounding of op-by-op execution (no contracted multiply-adds)."""
+    return jax.jit(f).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
 
 
 def _np(x):
@@ -83,16 +89,18 @@ def setup(tiny_cfg):
     cfg = tiny_cfg.replace(tpu_brick_occupancy=0)
     nb = _batch(cfg)
     jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    model = GeoFormer(ModelConfig.from_cfg(cfg)).eval()
+    model.load_state_dict(_perturbed(model))
+    variables = to_jax_variables(model)
+    sd = from_jax_variables(variables)
+    model.load_state_dict(sd, strict=True)
+
     jm = JaxGeoFormer(JaxModelConfig.from_cfg(cfg))
-    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
-    variables = jax.jit(lambda: jm.init({"params": k1, "sample": k2, "dropout": k3}, jb,
-                                        train=False))()
-    variables = _perturbed(variables)
-    rngs = {"sample": k2}
+    rngs = {"sample": jax.random.split(jax.random.PRNGKey(0), 3)[1]}
 
     def apply(method, *args):
-        return jax.tree_util.tree_map(np.array, jax.jit(
-            lambda v, *a: jm.apply(v, *a, rngs=rngs, method=method))(variables, *args))
+        return jax.tree_util.tree_map(np.array, _jit_exact(
+            lambda v, *a: jm.apply(v, *a, rngs=rngs, method=method), variables, *args))
 
     jout = apply(lambda m, b: m(b, train=False), jb)
     point_feats, _, _, jstats = apply(lambda m, b: m.forward_backbone(b, False), jb)
@@ -101,25 +109,32 @@ def setup(tiny_cfg):
     fg_feats = np.take_along_axis(point_feats, fg_idx[..., None], axis=1)
     jagg = apply(lambda m, *a: m.forward_aggregator(*a, False), fg_locs, fg_feats, fg_valid)
     jgeo = apply(lambda m, *a: m.forward_geodesic(*a, False), fg_locs, fg_valid, jagg[2], jagg[3])
-
-    model = GeoFormer(ModelConfig.from_cfg(cfg)).eval()
-    sd = from_jax_variables(variables)
-    model.load_state_dict(sd, strict=True)
     tb = {k: torch.from_numpy(v) for k, v in nb.items()}
     tb["coords"] = tb["coords"].long()
     with torch.no_grad():
         tout = model(tb)
-    return dict(cfg=cfg, nb=nb, tb=tb, variables=variables, sd=sd, model=model, jout=jout,
-                jstats=jstats, fg_locs=fg_locs, fg_feats=fg_feats, jagg=jagg, jgeo=jgeo,
+    return dict(cfg=cfg, nb=nb, jb=jb, jm=jm, tb=tb, variables=variables, sd=sd, model=model,
+                jout=jout, jstats=jstats, fg_locs=fg_locs, fg_feats=fg_feats, jagg=jagg, jgeo=jgeo,
                 tout=tout)
 
 
 def test_weights_use_every_leaf_both_ways(setup):
-    """Every JAX leaf maps to one state_dict entry and every port
-    parameter and buffer is set by one (strict load in the fixture)."""
-    n_leaves = len(jax.tree_util.tree_leaves(setup["variables"]))
-    assert len(setup["sd"]) == n_leaves
+    """The port's tree has exactly the leaves (paths and shapes) of a JAX
+    init, every JAX leaf maps to one state_dict entry and every port
+    parameter and buffer is set by one (strict load in the fixture), and
+    the round trip through the JAX tree changes no value."""
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
+    shapes = jax.eval_shape(lambda: setup["jm"].init(
+        {"params": k1, "sample": k2, "dropout": k3}, setup["jb"], train=False))
+    want_tree = {jax.tree_util.keystr(p): s.shape
+                 for p, s in jax.tree_util.tree_leaves_with_path(shapes)}
+    got_tree = {jax.tree_util.keystr(p): a.shape
+                for p, a in jax.tree_util.tree_leaves_with_path(setup["variables"])}
+    assert got_tree == want_tree
+    assert len(setup["sd"]) == len(want_tree)
     assert set(setup["sd"]) == set(setup["model"].state_dict())
+    want = _perturbed(GeoFormer(ModelConfig.from_cfg(setup["cfg"])))
+    assert all(torch.equal(setup["sd"][k], v) for k, v in want.items())
 
 
 def test_backbone_semantic_scores(setup):
@@ -166,9 +181,9 @@ def test_radius_graph_at_model_settings(setup):
     args = (mc.geodesic_radius, k)
     kw = dict(cell_cap=mc.radius_cell_cap, cell_div=mc.radius_cell_div,
               dense_grid=mc.knn_dense_grid, select=mc.knn_select)
-    jd, ji, jdrop, _ = jax_radius_knn(jnp.asarray(setup["fg_locs"]),
-                                      jnp.asarray(setup["jout"]["fg_valid"]), *args,
-                                      with_stats=True, **kw)
+    jd, ji, jdrop, _ = _jit_exact(lambda p, m: jax_radius_knn(p, m, *args, with_stats=True, **kw),
+                                  jnp.asarray(setup["fg_locs"]),
+                                  jnp.asarray(setup["jout"]["fg_valid"]))
     td, ti, tdrop, _ = radius_knn(torch.from_numpy(setup["fg_locs"]),
                                   torch.from_numpy(setup["jout"]["fg_valid"]), *args, **kw)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))

@@ -42,7 +42,26 @@ directory that lacks the port's package. It
    forward's foreground gather, K2 at the two shapes of the few-shot
    path (support instance, 20,000-point aggregator) and K1 at the few-shot
    path's table, captured there;
-9. prints a ``kernels`` line with each kernel's launches on its paths (K2's
+9. drives the training paths (``train_paths``): writes a dataset of 4B
+   full-size scenes with their points shuffled (the first 2B the train
+   split, two steps an epoch at the batch size B) and a pretrain checkpoint
+   whose semantic head makes every point foreground, then runs cli.train on
+   config/geoformer_scannet.yaml (its widths, bf16 and remat; epochs cut as
+   TRAIN_CUTS says: one prepare epoch, one full epoch), cli.test on the
+   checkpoint it wrote (the ``chain``), and cli.train_fs from it on
+   config/geoformer_fs_scannet.yaml (TRAIN_FS_CUTS), each from its command
+   line and counted; each prints ms a step by phase, the losses, the matched
+   instances, peak memory, every capacity counter (all must read 0), the
+   matcher's share of the step, the residual blocks rematerialized and the
+   sparse-conv operands narrowed to bf16, and K1's and K2's launches (K2's
+   at both few-shot shapes); then holds K1 and K2 against their plain
+   versions at the training shapes (B > 1), captured in one training-mode
+   forward outside the counted runs;
+10. ``train_small_reference``: one full-phase training step at a small size
+   on the card and on the CPU, same weights, batch and subsample draws: the
+   loss and every gradient within 1e-3 x max(1, |cpu|inf), K1's and K2's
+   card outputs equal to their plain versions' on the CPU run's inputs;
+11. prints a ``kernels`` line with each kernel's launches on its paths (K2's
    by shape: every counted run logs the shape of each K2 call, and a row's
    ``launches`` are those made at its shape), its times and its bound, the
    card's line, and last
@@ -110,15 +129,20 @@ def device_ms(torch, fn, reps: int, flush=None, only=None) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush.fill_(0.0)
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-              if e.device_type == cuda]
+    # a capture now and then comes back with no device event at all (seen
+    # once in ~10 runs of this script): take another one, up to three
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.fill_(0.0)
+                fn()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                  if e.device_type == cuda]
+        if events:
+            break
     if flush is not None:
         if not any("FillFunctor" in k for k, _ in events):
             fail("the L2 flush's fill kernel was not found in the profile")
@@ -171,14 +195,24 @@ def profile_forward(torch, engine, batch) -> None:
           "top": [[k[:90], ms, n] for k, ms, n in rows[:12]]})
 
 
-class FpsShapeLog(list):
-    """Stands in for ``fps.capture`` during a counted run: of each call it
-    keeps the shape [B, P, n_samples] and drops the tensors, so that the
-    run's launches can be told apart by shape."""
+class CallLog(list):
+    """Stands in for a kernel wrapper's ``capture`` (K1's or K2's) during a
+    counted run: of each call it keeps the shape ([N, W, k] or [B, P,
+    n_samples]) and drops the tensors, so that the run's launches can be
+    told apart by shape; with ``keep`` (outside a counted run) it also keeps
+    the tensors of the first call at each shape."""
+
+    def __init__(self, keep: bool = False):
+        super().__init__()
+        self.keep = keep
+        self.first = {}
 
     def append(self, call):
-        points, _, n_samples = call
-        super().append((*points.shape[:2], n_samples))
+        a, _, k = call
+        key = (*a.shape, k) if a.ndim == 2 else (*a.shape[:2], k)
+        super().append(key)
+        if self.keep and key not in self.first:
+            self.first[key] = call
 
     def by_shape(self) -> dict:
         return {json.dumps(list(k)): self.count(k) for k in sorted(set(self))}
@@ -314,24 +348,26 @@ def write_smoke_data(torch, cfg_mod, Engine, here) -> dict:
     return {"cfgs": cfgs, "paths": paths}
 
 
-def run_driver(torch, name, main, paths, counters) -> dict:
+def run_driver(torch, name, main, paths, counters, label=None) -> dict:
     """One eval driver from its command line, with the kernels' launch
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after. ``label`` names the
+    run (its phase and experiment directory) when it is not ``name``."""
+    label = label or name
     for fn in counters.values():
         fn.launches = 0
-    fps_log = counters["fps"].capture = FpsShapeLog()
+    fps_log = counters["fps"].capture = CallLog()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     summary = main(["--config", paths["config"], "--pretrain", paths["ckpt"],
                     "--output_path", os.path.join(os.path.dirname(paths["config"]), "exp"),
-                    "--exp_name", name])
+                    "--exp_name", label])
     torch.cuda.synchronize()
     seconds = time.time() - t0
     counters["fps"].capture = None
     launches = read_launches(counters, fps_log)
     avgs = summary["avgs"]
-    res = {"phase": f"driver_{name}", "all_ap": avgs["all_ap"], "all_ap_50%": avgs["all_ap_50%"],
+    res = {"phase": f"driver_{label}", "all_ap": avgs["all_ap"], "all_ap_50%": avgs["all_ap_50%"],
            "all_ap_25%": avgs["all_ap_25%"], "scenes": summary["scenes"],
            "n_degraded": summary["n_degraded"], "launches": launches, "seconds": seconds,
            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -340,16 +376,16 @@ def run_driver(torch, name, main, paths, counters) -> dict:
                            for k, v in summary["stage_ms"].items()}
     emit(res)
     if not all(math.isfinite(avgs[k]) for k in ("all_ap", "all_ap_50%", "all_ap_25%")):
-        fail(f"driver {name}: AP is not finite")
+        fail(f"driver {label}: AP is not finite")
     if len(summary["scenes"]) != 2:
-        fail(f"driver {name}: {len(summary['scenes'])} scenes evaluated, expected 2")
+        fail(f"driver {label}: {len(summary['scenes'])} scenes evaluated, expected 2")
     if summary["n_degraded"]:
-        fail(f"driver {name}: a scene ran over a static capacity")
+        fail(f"driver {label}: a scene ran over a static capacity")
     for k in ("knn_select", "fps"):
         if launches[k] <= 0:
-            fail(f"driver {name}: kernel {k} was not launched")
+            fail(f"driver {label}: kernel {k} was not launched")
     if any(r["fg_points"] <= 0 for r in summary["scenes"]):
-        fail(f"driver {name}: a scene had no foreground point")
+        fail(f"driver {label}: a scene had no foreground point")
     return res
 
 
@@ -415,11 +451,417 @@ def kernel_edges(torch) -> dict:
     return res
 
 
+
+# ---------------- training paths ----------------
+
+# batch size of the two training drivers: the largest of 16, 8, 4, 2 that
+# fits the card (B = 16 ran out of the H100's 80 GB in the full phase; B = 8
+# peaks at ~51 GB; PERF.md)
+TRAIN_BATCH = 8
+# cuts of the published training configs (each printed in its phase's ``cut``)
+TRAIN_CUTS = {"prepare_epochs": [120, 1], "epochs": [500, 2], "start_epoch": [0, 1]}
+TRAIN_FS_CUTS = {"epochs": [40, 1], "start_epoch": [0, 1]}
+# foreground logit of the pretrain checkpoint's semantic head (class 4, a
+# fold class): every point is foreground, so the mask head trains on the
+# full 131,072-point capacity and not on an empty or arbitrary set
+FG_BIAS = 30.0
+
+
+class TrainProbes:
+    """Counts, over a counted training run, the residual blocks run under
+    torch.utils.checkpoint (remat), the sparse-conv operands narrowed to
+    bf16, and the host wall time of each matcher call (synchronized on
+    both sides)."""
+
+    def __init__(self, torch):
+        import geoformer_tpu_torch.losses.criterion as crit
+        import geoformer_tpu_torch.losses.criterion_fs as crit_fs
+        import geoformer_tpu_torch.ops.sparse_conv as sc
+
+        self.torch, self.crit, self.crit_fs, self.sc = torch, crit, crit_fs, sc
+        self.remat_blocks = self.bf16_operands = 0
+        self.matcher_ms = []
+        self.saved = (torch.utils.checkpoint.checkpoint, sc._narrow, crit.matcher)
+
+    def __enter__(self):
+        torch = self.torch
+        checkpoint, narrow, matcher = self.saved
+
+        def counted_checkpoint(*a, **kw):
+            self.remat_blocks += 1
+            return checkpoint(*a, **kw)
+
+        def counted_narrow(x, compute_dtype):
+            self.bf16_operands += compute_dtype == torch.bfloat16
+            return narrow(x, compute_dtype)
+
+        def timed_matcher(cfg):
+            assign = matcher(cfg)
+
+            def timed(cost, valid):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = assign(cost, valid)
+                torch.cuda.synchronize()
+                self.matcher_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            return timed
+
+        torch.utils.checkpoint.checkpoint = counted_checkpoint
+        self.sc._narrow = counted_narrow
+        self.crit.matcher = self.crit_fs.matcher = timed_matcher
+        return self
+
+    def __exit__(self, *exc):
+        checkpoint, narrow, matcher = self.saved
+        self.torch.utils.checkpoint.checkpoint = checkpoint
+        self.sc._narrow = narrow
+        self.crit.matcher = self.crit_fs.matcher = matcher
+
+
+def shuffle_points(base: str, seed: int) -> None:
+    """Permute the points of every scene file under ``base``: a synthetic
+    room is written surface by surface (floor, walls, then the furniture
+    boxes that carry the instances), and the first 131,072 points that the
+    foreground pack keeps would hold no instance; a scan's vertex order
+    interleaves them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    scenes = os.path.join(base, "scenes")
+    for name in sorted(os.listdir(scenes)):
+        path = os.path.join(scenes, name)
+        data = np.load(path)
+        np.save(path, data[rng.permutation(len(data))])
+
+
+def write_train_data(torch, cfg_mod, Engine, here, batch_size) -> dict:
+    """A synthetic dataset of 4B full-size scenes (its first 2B the train
+    split: two steps an epoch at batch size B), the two training configs
+    (the published YAMLs with only the TRAIN_CUTS / TRAIN_FS_CUTS epoch
+    counts and the batch size changed) and the supervised pretrain
+    checkpoint, under build/smoke_train."""
+    import yaml
+
+    from geoformer_tpu_torch.synthetic import write_dataset
+    from geoformer_tpu_torch.weights import save_jax_checkpoint
+
+    import shutil
+
+    root = os.path.join(here, "build", "smoke_train")
+    # a checkpoint left by an earlier run would resume past the last epoch
+    shutil.rmtree(root, ignore_errors=True)
+    base = write_dataset(root, n_scenes=4 * batch_size, n_points=250000, seed=1)
+    shuffle_points(base, seed=1)
+    common = dict(data_root=root, output_path=os.path.join(root, "exp"),
+                  batch_size=batch_size)
+    cfgs = {
+        "train": cfg_mod.load_config(os.path.join(here, "config", "geoformer_scannet.yaml"),
+                                     **common, **{k: v[1] for k, v in TRAIN_CUTS.items()}),
+        "train_fs": cfg_mod.load_config(
+            os.path.join(here, "config", "geoformer_fs_scannet.yaml"),
+            **common, **{k: v[1] for k, v in TRAIN_FS_CUTS.items()}),
+    }
+    paths = {}
+    for name, cfg in cfgs.items():
+        paths[name] = os.path.join(root, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump({"ALL": {k: v for k, v in cfg.to_dict().items() if k != "config"}}, f)
+    engine = Engine(cfgs["train"], seed=0)
+    with torch.no_grad():
+        engine.model.semantic.Dense_2.bias[4] += FG_BIAS
+    paths["pretrain"] = os.path.join(root, "pretrain.ckpt")
+    save_jax_checkpoint(paths["pretrain"], engine.model)
+    del engine
+    torch.cuda.empty_cache()
+    return {"cfgs": cfgs, "paths": paths, "root": root}
+
+
+def run_train_driver(torch, name, main, argv, counters, backbone_trains: bool) -> dict:
+    """One training driver from its command line, counted: the kernels'
+    launch counts set to 0 just before and read just after, the peak
+    device memory over the run, and the TrainProbes. The residual blocks
+    are rematerialized when the backbone trains (a frozen backbone runs in
+    eval mode, and the JAX model remats it then neither)."""
+    for fn in counters.values():
+        fn.launches = 0
+    fps_log = counters["fps"].capture = CallLog()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with TrainProbes(torch) as probes:
+        summary = main(argv)
+        torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counters["fps"].capture = None
+    launches = read_launches(counters, fps_log)
+    steps = summary["steps"]
+    by_phase = {}
+    for st in steps:
+        by_phase.setdefault(st["phase"], []).append(st["seconds"] * 1e3)
+    counters_max = {}
+    for st in steps:
+        for k, v in st["voxel_stats"].items():
+            if k in CAPACITY_KEYS:
+                counters_max[k] = max(counters_max.get(k, 0), max(int(x) for x in v))
+    full = [st for st in steps if st["phase"] == "full"]
+    step_ms = sum(st["seconds"] for st in steps) * 1e3
+    res = {"phase": name, "steps": len(steps), "ms_per_step": by_phase,
+           "losses": [st["losses"] for st in steps],
+           "num_gt": [st["losses"].get("num_gt") for st in full],
+           "capacity_counters": counters_max,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "matcher": {"calls": len(probes.matcher_ms), "ms": probes.matcher_ms,
+                       "share_of_step_time": sum(probes.matcher_ms) / step_ms if step_ms else None},
+           "remat_blocks": probes.remat_blocks, "bf16_conv_operands": probes.bf16_operands,
+           "launches": launches, "seconds": seconds, "checkpoint": summary["checkpoint"]}
+    if not steps:
+        fail(f"{name}: no training step ran")
+    if not all(math.isfinite(v) for st in steps for v in st["losses"].values()):
+        fail(f"{name}: a loss is not finite")
+    if any(counters_max.values()):
+        fail(f"{name}: a capacity counter is not 0: {counters_max}")
+    if not full or not all(n and n > 0 for n in res["num_gt"]):
+        fail(f"{name}: a full-phase step matched no gt instance")
+    for k in ("knn_select", "fps"):
+        if launches[k] <= 0:
+            fail(f"{name}: kernel {k} was not launched")
+    if (probes.remat_blocks > 0) != backbone_trains or probes.bf16_operands <= 0:
+        fail(f"{name}: remat ({probes.remat_blocks} blocks; the backbone trains: "
+             f"{backbone_trains}) or bf16 ({probes.bf16_operands} operands) not in force")
+    return res
+
+
+CAPACITY_KEYS = ("n_overflow_points", "n_oor_points", "n_dropped_voxels_deeper",
+                 "n_brick_overflow", "saturated", "n_radius_cell_overflow",
+                 "n_radius_window_overflow")
+
+
+def capture_train_kernels(torch, Engine, cfg, ckpt, few_shot) -> dict:
+    """One training-mode forward (no gradient, outside every counted run)
+    of the trained checkpoint on a training batch, capturing the first K1
+    table and K2's inputs at each of its shapes."""
+    from geoformer_tpu_torch.kernels.fps import fps
+    from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand
+    from geoformer_tpu_torch.weights import load_jax_checkpoint
+
+    engine = Engine(cfg, few_shot=few_shot, state_dict=load_jax_checkpoint(ckpt))
+    gen = torch.Generator(device=engine.device).manual_seed(5)
+    if few_shot:
+        from geoformer_tpu_torch.data.episodic import FSInstDataset
+
+        support, batch, _ = next(FSInstDataset(cfg, "train").train_batches(cfg.batch_size, seed=5))
+    else:
+        from geoformer_tpu_torch.data.scannet import InstDataset
+
+        batch = next(InstDataset(cfg, "train").train_batches(cfg.batch_size, seed=5))
+    knn, fps_log = CallLog(keep=True), CallLog(keep=True)
+    select_min_k_cand.capture, fps.capture = knn, fps_log
+    engine.model.train()
+    with torch.no_grad():
+        if few_shot:
+            engine.model(engine.to_device(support), engine.to_device(batch), train=True,
+                         generator=gen)
+        else:
+            engine.model(engine.to_device(batch), train=True, generator=gen)
+    select_min_k_cand.capture = fps.capture = None
+    del engine
+    torch.cuda.empty_cache()
+    return {"knn": next(iter(knn.first.values())), "fps": fps_log.first}
+
+
+def train_small_reference(torch, cfg_mod, Engine, synthetic_batch) -> dict:
+    """One full-phase training step at a small size on the card and on the
+    CPU: same weights, same batch, same subsample draws (injected into
+    random_pack_by_mask). The loss and every gradient must agree, and K1's
+    and K2's outputs on the card must equal their plain versions' outputs
+    on the CPU run's inputs."""
+    import numpy as np
+
+    import geoformer_tpu_torch.models.geoformer as gf
+    from geoformer_tpu_torch.kernels.fps import fps, fps_plain
+    from geoformer_tpu_torch.kernels.knn_select import (
+        select_min_k_cand,
+        select_min_k_cand_plain,
+    )
+    from geoformer_tpu_torch.weights import random_state_dict
+
+    cfg = cfg_mod.load_config(
+        None, batch_size=2, m=8, dec_dim=32, dec_nhead=4, dec_ffn_dim=32, dec_nlayers=2,
+        dec_dropout=0.0, n_decode_point=128, n_query_points=32, n_downsampling=1024,
+        tpu_max_points=4096, tpu_max_voxels=4096, tpu_max_fg_points=2048,
+        tpu_train_subsample=1024, tpu_max_instances=16, tpu_knn_neighbors=16,
+        tpu_spatial_shape=256, tpu_unet_depth=2, tpu_ball_nsample=16, prepare_epochs=0,
+        tpu_remat=True)
+    from geoformer_tpu_torch.models.unet import BottleneckTransformer
+
+    batch = synthetic_batch(cfg, 2, seed=11)
+    model = gf.GeoFormer(gf.ModelConfig.from_cfg(cfg))
+    sd = random_state_dict(model, 3)
+    sd["semantic.Dense_2.bias"][4] += FG_BIAS
+    real_pack = gf.random_pack_by_mask
+
+    def injected(mask, capacity, generator):
+        rng = np.random.default_rng(capacity)
+        b, p = mask.shape
+        if capacity >= p:
+            n = mask.sum(1).clamp(min=1).cpu()
+            draws = torch.minimum((torch.from_numpy(rng.random(b)) * n).long(), n - 1)
+        else:
+            draws = torch.from_numpy(rng.random((b, p)).astype(np.float32))
+        return gf.pack_from_draws(mask, capacity, draws.to(mask.device))
+
+    runs = {}
+    gf.random_pack_by_mask = injected
+    try:
+        for run in ("cpu", "cuda", "cuda_again"):
+            dev = run.split("_")[0]
+            engine = Engine(cfg, device=dev, state_dict=sd)
+            engine.init_state()
+            # no dropout (dec_dropout is 0 above; the U-Net's bottleneck
+            # transformer keeps a fixed 0.1): the two devices draw other masks
+            for mod in engine.model.modules():
+                if isinstance(mod, BottleneckTransformer):
+                    mod.dropout = 0.0
+            knn, fps_in = [], []
+            select_min_k_cand.capture, fps.capture = knn, fps_in
+            engine.model.train()
+            tb = engine.to_device(batch)
+            out = engine.model(tb, train=True)
+            loss, ld = engine.criterion(out, tb, 1)
+            loss.backward()
+            select_min_k_cand.capture = fps.capture = None
+            runs[run] = {"loss": float(loss.detach()), "num_gt": float(ld["num_gt"]),
+                         "grads": {k: p.grad.detach().cpu() for k, p in
+                                   engine.model.named_parameters() if p.grad is not None},
+                         "knn": knn, "fps": fps_in}
+    finally:
+        gf.random_pack_by_mask = real_pack
+    a, b, b2 = runs["cpu"], runs["cuda"], runs["cuda_again"]
+    tol = 1e-3
+    loss_err = abs(a["loss"] - b["loss"]) / max(1.0, abs(a["loss"]))
+    errs = {k: (float((g - b["grads"][k]).abs().max()) / max(1.0, float(g.abs().max())),
+                float(g.abs().max())) for k, g in a["grads"].items()}
+    worst_key = max(errs, key=lambda k: errs[k][0])
+    worst = errs[worst_key][0]
+    # the card against itself: its scatter-adds sum in no fixed order
+    spread = max(float((g - b2["grads"][k]).abs().max()) / max(1.0, float(g.abs().max()))
+                 for k, g in b["grads"].items())
+    kernels_equal = {
+        "knn_select": all(all(torch.equal(bits(torch, x.cpu()), bits(torch, y)) for x, y in zip(
+            select_min_k_cand(*g), select_min_k_cand_plain(*c)))
+            for g, c in zip(b["knn"], a["knn"])),
+        "fps": all(torch.equal(fps(*g).cpu(), fps_plain(*c)) for g, c in zip(b["fps"], a["fps"])),
+    }
+    res = {"phase": "train_small_reference", "points": cfg.tpu_max_points, "batch": 2,
+           "loss": {"cpu": a["loss"], "cuda": b["loss"]}, "num_gt": a["num_gt"],
+           "loss_rel_err": loss_err, "grad_leaves": len(a["grads"]),
+           "grad_max_rel_err": worst, "worst_leaf": worst_key, "tol": tol,
+           "card_repeat_grad_max_rel_err": spread,
+           "worst_leaves": sorted(([k, e, m] for k, (e, m) in errs.items()),
+                                  key=lambda r: -r[1])[:6],
+           "kernel_calls": {"knn_select": len(b["knn"]), "fps": len(b["fps"])},
+           "kernels_equal_to_cpu_run": kernels_equal}
+    emit(res)
+    if set(a["grads"]) != set(b["grads"]):
+        fail("train_small_reference: the card and the CPU took gradients of other leaves")
+    if loss_err > tol or worst > tol or not all(kernels_equal.values()):
+        fail("train_small_reference: the card's training step disagrees with the CPU's")
+    if not b["knn"] or not b["fps"] or a["num_gt"] <= 0:
+        fail("train_small_reference: the step ran no kernel or matched no instance")
+    return res
+
+
+def train_paths(torch, cfg_mod, Engine, here, batch_size, counters, smoke) -> dict:
+    """cli.train on the published supervised config (cut epochs), cli.test on
+    the checkpoint it wrote, cli.train_fs from that checkpoint on the
+    published few-shot config, each counted; then K1 and K2 at the training
+    shapes, held against their plain versions."""
+    from geoformer_tpu_torch.cli import test as cli_test
+    from geoformer_tpu_torch.cli import train as cli_train
+    from geoformer_tpu_torch.cli import train_fs as cli_train_fs
+    from geoformer_tpu_torch.kernels.fps import fps, fps_plain
+    from geoformer_tpu_torch.kernels.knn_select import (
+        select_min_k_cand,
+        select_min_k_cand_plain,
+    )
+    from geoformer_tpu_torch.models.geoformer import ModelConfig
+
+    t0 = time.time()
+    data = write_train_data(torch, cfg_mod, Engine, here, batch_size)
+    cfgs, paths = data["cfgs"], data["paths"]
+    mc = ModelConfig.from_cfg(cfgs["train"])
+    emit({"phase": "train_data", "root": os.path.relpath(data["root"], here),
+          "scenes": 4 * batch_size, "train_scenes": 2 * batch_size, "points": 250000,
+          "seconds": time.time() - t0})
+    exp = os.path.join(data["root"], "exp")
+    res = run_train_driver(torch, "train", cli_train.main, [
+        "--config", paths["train"], "--pretrain", paths["pretrain"], "--output_path", exp,
+        "--exp_name", "train"], counters, backbone_trains=True)
+    res.update(batch_size=batch_size, cut=TRAIN_CUTS, config="config/geoformer_scannet.yaml",
+               compute_dtype="bfloat16" if mc.bf16 else "float32", remat=mc.remat)
+    emit(res)
+    trained = res["checkpoint"]
+    by_path = {"train": res["launches"]}
+
+    # chain: the eval driver on the checkpoint the training driver wrote
+    chain = run_driver(torch, "test", cli_test.main,
+                       dict(smoke["paths"]["test"], ckpt=trained), counters, label="chain_test")
+    emit({"phase": "chain", "checkpoint": os.path.relpath(trained, here),
+          "all_ap": chain["all_ap"], "scenes": len(chain["scenes"])})
+    by_path["chain_test"] = chain["launches"]
+
+    res_fs = run_train_driver(torch, "train_fs", cli_train_fs.main, [
+        "--config", paths["train_fs"], "--pretrain", trained, "--output_path", exp,
+        "--exp_name", "train_fs"], counters,
+        backbone_trains=not ModelConfig.from_cfg(cfgs["train_fs"]).is_fixed("backbone"))
+    mc_fs = ModelConfig.from_cfg(cfgs["train_fs"])
+    res_fs.update(batch_size=batch_size, cut=TRAIN_FS_CUTS,
+                  config="config/geoformer_fs_scannet.yaml",
+                  compute_dtype="bfloat16" if mc_fs.bf16 else "float32", remat=mc_fs.remat,
+                  frozen=list(cfgs["train_fs"].fix_module))
+    emit(res_fs)
+    by_path["train_fs"] = res_fs["launches"]
+    want = {json.dumps([batch_size, 4096, 32]), json.dumps(
+        [batch_size, cfgs["train_fs"].n_downsampling, cfgs["train_fs"].n_decode_point])}
+    if set(res_fs["launches"]["fps_by_shape"]) != want:
+        fail(f"train_fs: fps shapes {res_fs['launches']['fps_by_shape']}, expected {sorted(want)}")
+
+    # K1 and K2 at the training shapes (B > 1), captured outside the counted runs
+    sup = capture_train_kernels(torch, Engine, cfgs["train"], trained, False)
+    d2, cand, k = sup["knn"]
+    n, w = d2.shape
+    k1 = kernel_row(
+        torch, name="knn_select", source="geoformer_tpu_torch/csrc/knn_select.cu",
+        replaces="geoformer_tpu/ops/knn_select_pallas.py:34", launches=res["launches"]["knn_select"],
+        kernel=lambda: select_min_k_cand(d2, cand, k),
+        plain=lambda: select_min_k_cand_plain(d2, cand, k),
+        library=lambda: torch.topk(d2, k, dim=1, largest=False),
+        bytes_=n * w * 4 + n * k * 4 + n * k * 8, ops=n * w * k, shape=[n, w, k],
+        reps=20, plain_reps=3, path="train", launches_per_forward=batch_size,
+        exact_share=exact_share(torch, select_min_k_cand, d2, cand, k))
+    del d2, cand, sup["knn"]
+    k2 = [fps_row(torch, fps, fps_plain, inp, res["launches"]["fps_by_shape"].get(
+        json.dumps(list(key)), 0)) for key, inp in sup["fps"].items()]
+    del sup
+    fs = capture_train_kernels(torch, Engine, cfgs["train_fs"], res_fs["checkpoint"], True)
+    k2 += [fps_row(torch, fps, fps_plain, inp, res_fs["launches"]["fps_by_shape"].get(
+        json.dumps(list(key)), 0)) for key, inp in fs["fps"].items()]
+    del fs
+    torch.cuda.empty_cache()
+    for row in k2:
+        row["path"] = "train" if row["shape"][1] == cfgs["train"].n_downsampling else "train_fs"
+        if row["shape"][0] < 2 or row["launches"] <= 0:
+            fail(f"fps at a training shape {row['shape']}: batch < 2 or no launch")
+    return {"by_path": by_path, "k1": k1, "k2": k2}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenes", type=int, default=2, help="full-size scenes to run (>= 2)")
     args = ap.parse_args(argv)
 
+    started = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -458,6 +900,7 @@ def main(argv=None) -> int:
           "ptxas": [" ".join(line.split()) for line in kernels.build_log().splitlines()
                     if "Compiling entry" in line or "Used" in line or "spill" in line]})
 
+    counters = {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather}
     small_reference(torch, cfg_mod, Engine, synthetic_batch)
     edges = kernel_edges(torch)
 
@@ -466,11 +909,10 @@ def main(argv=None) -> int:
     engine = Engine(cfg, seed=0)
     mc = engine.mc
     P, F, Q, C = cfg.tpu_max_points, mc.max_fg_points, mc.n_query_points, mc.classes
-    counters = {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather}
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    fps_log = fps.capture = FpsShapeLog()
+    fps_log = fps.capture = CallLog()
     scene_ms = []
     for seed in range(max(args.scenes, 2)):
         batch = synthetic_batch(cfg, 1, seed=seed)
@@ -622,6 +1064,12 @@ def main(argv=None) -> int:
         torch, row_gather, row_gather_plain, gather_x, gather_idx,
         sum(by_path[p]["row_gather"] for p in ("eval_batch", "driver_test", "driver_test_fs")))
 
+    # the training paths: cli.train, the chain through cli.test, cli.train_fs
+    trained = train_paths(torch, cfg_mod, Engine, here, TRAIN_BATCH, counters, data)
+    train_small_reference(torch, cfg_mod, Engine, synthetic_batch)
+    by_path.update(trained["by_path"])
+    k1_row["other_shapes"] = [trained["k1"]]
+    fs_rows += trained["k2"]
     k2_row["other_shapes"] = fs_rows
     # the floor of K2's design beside its operations bound: the chain of
     # dependent picks, timed with no distance to update
@@ -633,6 +1081,7 @@ def main(argv=None) -> int:
                                    if c.get(row["name"])}
     k2_row["launches_by_path_and_shape"] = {p: c["fps_by_shape"] for p, c in by_path.items()
                                             if c.get("fps_by_shape")}
+    emit({"phase": "done", "seconds": time.time() - started})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

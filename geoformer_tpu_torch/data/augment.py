@@ -1,13 +1,93 @@
-"""Host-side label helpers (numpy).
+"""Host-side point cloud augmentation (numpy; the port's copy of
+geoformer_tpu/data/augment.py).
 
-The port's copy of the part of geoformer_tpu/data/augment.py that the eval
-loaders call. The training augmentations (affine jitter, elastic
-distortion, crop to the point budget) come with the training slice.
+Semantics of the reference dataloader (datasets/scannetv2_inst.py:142-232):
+jitter/flip/rotate affine, elastic distortion, random crop to the point
+budget. The JAX package runs the elastic blur and the trilinear gather in a
+native C++ library when it can build one; the port carries that library's
+numpy/scipy fallbacks (``elastic_blur``, ``trilinear_gather``), the same
+semantics. scipy is imported where it is used.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+
+
+def augment_affine(xyz, rng, jitter=False, flip=False, rot=False):
+    m = np.eye(3)
+    if jitter:
+        m += rng.standard_normal((3, 3)) * 0.1
+    if flip:
+        m[0][0] *= rng.integers(0, 2) * 2 - 1
+    if rot:
+        theta = rng.random() * 2 * math.pi
+        m = np.matmul(
+            m,
+            [[math.cos(theta), math.sin(theta), 0],
+             [-math.sin(theta), math.cos(theta), 0],
+             [0, 0, 1]],
+        )
+    return np.matmul(xyz, m)
+
+
+def elastic_blur(noise: np.ndarray) -> np.ndarray:
+    """Six 3-tap box blur passes over 3 noise grids [3,dx,dy,dz] (the
+    reference's blur0/blur1/blur2 x2, scannetv2_inst.py:146-152)."""
+    import scipy.ndimage
+
+    noise = np.ascontiguousarray(noise, dtype=np.float32)
+    blur0 = np.ones((3, 1, 1), np.float32) / 3
+    blur1 = np.ones((1, 3, 1), np.float32) / 3
+    blur2 = np.ones((1, 1, 3), np.float32) / 3
+    grids = [g for g in noise]
+    for blur in (blur0, blur1, blur2, blur0, blur1, blur2):
+        grids = [scipy.ndimage.convolve(g, blur, mode="constant", cval=0) for g in grids]
+    return np.stack(grids)
+
+
+def trilinear_gather(noise: np.ndarray, gran: float, pts: np.ndarray) -> np.ndarray:
+    """Sample 3 grids at pts with the reference's axis convention
+    (scannetv2_inst.py:153-158); out-of-bounds -> 0. -> [N,3]."""
+    import scipy.interpolate
+
+    noise = np.ascontiguousarray(noise, dtype=np.float32)
+    pts = np.ascontiguousarray(pts, dtype=np.float32)
+    d = noise.shape[1:]
+    ax = [np.linspace(-(b - 1) * gran, (b - 1) * gran, b) for b in d]
+    interp = [
+        scipy.interpolate.RegularGridInterpolator(ax, n, bounds_error=False, fill_value=0)
+        for n in noise
+    ]
+    return np.stack([i(pts) for i in interp], axis=1).astype(np.float32)
+
+
+def elastic(x, gran, mag, rng):
+    """Elastic distortion over a blurred noise grid (scannetv2_inst.py:142-161)."""
+    bb = np.abs(x).max(0).astype(np.int32) // gran + 3
+    noise = np.stack(
+        [rng.standard_normal(tuple(bb)).astype(np.float32) for _ in range(3)]
+    )
+    noise = elastic_blur(noise)
+    g = trilinear_gather(noise, float(gran), x.astype(np.float32))
+    return x + g * mag
+
+
+def crop_to_budget(xyz, max_npoint, full_scale, rng):
+    """Random shift-crop until <= max_npoint points fit in full_scale^3
+    (scannetv2_inst.py:206-222). xyz is scaled voxel-space coords >= 0."""
+    xyz_offset = xyz.copy()
+    valid = xyz_offset.min(1) >= 0
+    fs = np.array([full_scale] * 3, np.float64)
+    room_range = xyz.max(0) - xyz.min(0)
+    while valid.sum() > max_npoint:
+        offset = np.clip(fs - room_range + 0.001, None, 0) * rng.random(3)
+        xyz_offset = xyz + offset
+        valid = (xyz_offset.min(1) >= 0) & ((xyz_offset < fs).sum(1) == 3)
+        fs[:2] -= 32
+    return xyz_offset, valid
 
 
 def compact_instance_labels(instance_label):

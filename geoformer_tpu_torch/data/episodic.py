@@ -6,17 +6,25 @@ instance. Test: fixed `test_combinations_fold{k}.pkl` and the 10 pickled
 support sets, for reproducible evaluation (scannetv2_fs_inst.py:98-182).
 
 The port's copy of geoformer_tpu/data/episodic.py (host numpy code, kept
-name for name), test side: training episodes come with the training slice.
+name for name). Training episodes draw classes and scenes from Python's
+``random`` and augmentations from numpy, both seeded from the training
+script's seed.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import random
 
 import numpy as np
 
-from geoformer_tpu_torch.data.augment import compact_instance_labels
+from geoformer_tpu_torch.data.augment import (
+    augment_affine,
+    compact_instance_labels,
+    crop_to_budget,
+    elastic,
+)
 from geoformer_tpu_torch.data.collate import pad_batch
 from geoformer_tpu_torch.data.scannet import FOLD
 
@@ -73,16 +81,25 @@ class FSInstDataset:
         return os.path.join(self.root, "scenes", f"{scene_name}.npy")
 
     def load_single(self, scene_name, rng, aug=True, crop=True):
-        if aug or crop:
-            raise NotImplementedError("training scenes (augmentation, crop) are not ported yet")
         data = np.load(self._scene_path(scene_name))
         xyz_origin = data[:, :3]
         rgb = data[:, 3:6]
         label = data[:, 6].astype(np.int32)
         instance_label = data[:, 7].astype(np.int32)
-        xyz_middle = xyz_origin
+
+        if aug:
+            xyz_middle = augment_affine(xyz_origin, rng, jitter=True, flip=True, rot=True)
+        else:
+            xyz_middle = xyz_origin
         xyz = xyz_middle * self.scale
+        if aug:
+            xyz = elastic(xyz, 6 * self.scale // 50, 40 * self.scale / 50, rng)
+            xyz = elastic(xyz, 20 * self.scale // 50, 160 * self.scale / 50, rng)
         xyz -= xyz.min(0)
+        if crop:
+            xyz, valid = crop_to_budget(xyz, self.max_npoint, self.full_scale[1], rng)
+            xyz_middle, xyz = xyz_middle[valid], xyz[valid]
+            rgb, label, instance_label = rgb[valid], label[valid], instance_label[valid]
         return xyz_middle, xyz, rgb, label, instance_label
 
     def _query_scene(self, scene_name, sampled_class, rng, aug):
@@ -133,7 +150,35 @@ class FSInstDataset:
     # ------------- train episodes -------------
 
     def train_batches(self, batch_size, seed=0, epochs=1):
-        raise NotImplementedError("training episodes are not ported yet")
+        """Generator of (support batch, query batch, infos) episodes.
+        Rank-offset RNGs give each process its own episode stream."""
+        from geoformer_tpu_torch.parallel.dist import get_world_size, local_seed
+
+        rng = np.random.default_rng(local_seed(seed))
+        pyrng = random.Random(local_seed(seed))
+        n_batches = max(len(self) // (batch_size * get_world_size()), 1)
+        for _ in range(epochs):
+            for _ in range(n_batches):
+                queries, supports, infos = [], [], []
+                for _ in range(batch_size):
+                    cls = pyrng.choice(self.fold_classes)
+                    query_name = pyrng.choice(self.class2scans[cls])
+                    queries.append(self._query_scene(query_name, cls, rng, aug=True))
+                    # bounded retry, gated on more than 100 points of the
+                    # support instance itself (the JAX module's documented
+                    # deviation from the reference's class-count gate)
+                    for _ in range(20):
+                        sup_name, sup_inst = pyrng.choice(self.class2instances[cls])
+                        sup = self._support_scene(sup_name, sup_inst, rng)
+                        if sup["support_masks"].sum() > 100:
+                            break
+                    supports.append(sup)
+                    infos.append({"class": cls, "query": query_name, "support": sup_name})
+                yield (
+                    pad_batch(supports, self.cfg.tpu_max_points, rng),
+                    pad_batch(queries, self.cfg.tpu_max_points, rng),
+                    infos,
+                )
 
     # ------------- test protocol -------------
 

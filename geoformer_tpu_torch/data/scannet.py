@@ -5,8 +5,7 @@ Reference: datasets/scannetv2.py (fold constants), datasets/scannetv2_inst.py
 (x, y, z, r, g, b, semantic_label in nyu-remapped 0-19/-100, instance_id).
 
 The port's copy of geoformer_tpu/data/scannet.py (host numpy code, kept
-name for name), eval side: training scenes and batches come with the
-training slice.
+name for name).
 """
 
 from __future__ import annotations
@@ -15,7 +14,12 @@ import os
 
 import numpy as np
 
-from geoformer_tpu_torch.data.augment import compact_instance_labels
+from geoformer_tpu_torch.data.augment import (
+    augment_affine,
+    compact_instance_labels,
+    crop_to_budget,
+    elastic,
+)
 from geoformer_tpu_torch.data.collate import pad_batch
 
 FOLD0 = [2, 3, 4, 7, 9, 11, 12, 13, 18]
@@ -75,12 +79,21 @@ class InstDataset:
         return data[:, :3], data[:, 3:6], data[:, 6].astype(np.int32), data[:, 7].astype(np.int32)
 
     def build_scene(self, index, rng, training: bool):
-        if training:
-            raise NotImplementedError("training scenes (augmentation, crop) are not ported yet")
         xyz_origin, rgb, label, instance_label = self.load_raw(index)
-        xyz_middle = xyz_origin
-        xyz = xyz_middle * self.scale
-        xyz -= xyz.min(0)
+        if training:
+            xyz_middle = augment_affine(xyz_origin, rng, jitter=True, flip=True, rot=True)
+            xyz = xyz_middle * self.scale
+            xyz = elastic(xyz, 6 * self.scale // 50, 40 * self.scale / 50, rng)
+            xyz = elastic(xyz, 20 * self.scale // 50, 160 * self.scale / 50, rng)
+            xyz -= xyz.min(0)
+            xyz, valid = crop_to_budget(xyz, self.max_npoint, self.full_scale[1], rng)
+            xyz_middle, xyz = xyz_middle[valid], xyz[valid]
+            rgb, label, instance_label = rgb[valid], label[valid], instance_label[valid]
+            rgb = rgb + rng.standard_normal(3) * 0.1
+        else:
+            xyz_middle = xyz_origin
+            xyz = xyz_middle * self.scale
+            xyz -= xyz.min(0)
 
         label = remap_semantic_labels(label, self.fold_classes)
         instance_label = instance_label.copy()
@@ -96,7 +109,19 @@ class InstDataset:
         }
 
     def train_batches(self, batch_size, seed=0, epochs=1):
-        raise NotImplementedError("training batches are not ported yet")
+        """Generator of padded training batches (shuffled, drop_last).
+
+        Multi-process runs get a per-process strided shard of the same
+        global shuffle (DistributedSampler semantics) and a rank-offset
+        augment RNG."""
+        from geoformer_tpu_torch.parallel.dist import local_seed, shard_indices
+
+        rng = np.random.default_rng(local_seed(seed))
+        for e in range(epochs):
+            order = shard_indices(len(self), batch_size, seed + e)
+            for i in range(0, len(order) - batch_size + 1, batch_size):
+                scenes = [self.build_scene(j, rng, True) for j in order[i : i + batch_size]]
+                yield pad_batch(scenes, self.cfg.tpu_max_points, rng)
 
     def test_batches(self):
         """Generator of (scene_name, padded batch of 1) for eval."""

@@ -1,4 +1,4 @@
-"""Eval engine (port of the eval half of geoformer_tpu/engine.py).
+"""Train and eval engine (port of geoformer_tpu/engine.py).
 
 ``Engine(cfg)`` builds the supervised GeoFormer, or with ``few_shot=True``
 GeoFormerFS, on the card (or on the device the caller names). The supervised
@@ -6,7 +6,10 @@ engine's ``eval_batch`` runs the eval forward plus the per-scene matrix NMS
 that the test driver applies after it (test.py:40-43); the few-shot engine
 is driven through its stages (``process_support``, ``encode_scene``,
 ``decode_with_support``, the last with test_fs.py:104-108's NMS over one
-category). The training step waits for the training slice.
+category). ``train_step`` is one step of either model: the prepare phase
+(epoch <= prepare_epochs; the supervised model's semantic head only, the
+criterion's semantic CE) or the full phase, its backward pass and the
+optimizer's update (``init_state`` builds the optimizer).
 """
 
 from __future__ import annotations
@@ -15,9 +18,12 @@ import numpy as np
 import torch
 
 from geoformer_tpu_torch import default_device, set_fp32_precision
+from geoformer_tpu_torch.losses import FSInstSetCriterion, InstSetCriterion
 from geoformer_tpu_torch.models.geoformer import GeoFormer, ModelConfig
 from geoformer_tpu_torch.models.geoformer_fs import GeoFormerFS
 from geoformer_tpu_torch.ops.nms import matrix_nms
+from geoformer_tpu_torch.parallel.train_state import TrainState
+from geoformer_tpu_torch.utils.scheduler import adjust_learning_rate, cosine_lr_after_step
 from geoformer_tpu_torch.weights import random_state_dict
 
 _DTYPES = {"coords": torch.long, "point_mask": torch.bool}
@@ -38,6 +44,51 @@ class Engine:
             state_dict = random_state_dict(self.model, seed)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
+        self.criterion = FSInstSetCriterion(cfg) if few_shot else InstSetCriterion(cfg)
+        self.state = None
+        self.last_voxel_stats = {}  # the capacity counters of the last train_step
+
+    # ---------------- train ----------------
+
+    def init_state(self) -> TrainState:
+        """The optimizer over the trainable modules, step 0."""
+        self.state = TrainState(self.cfg, self.model)
+        return self.state
+
+    def learning_rate(self, epoch: int) -> float:
+        cfg = self.cfg
+        if (not self.few_shot) and epoch <= cfg.prepare_epochs:
+            return cosine_lr_after_step(cfg.lr, epoch, cfg.prepare_epochs, cfg.epochs)
+        return adjust_learning_rate(cfg.base_lr, cfg.warm_lr, cfg.final_lr, cfg.warm_lr_epochs,
+                                    cfg.epochs, epoch)
+
+    def train_step(self, batch: dict, epoch: int, generator: torch.Generator,
+                   support: dict | None = None):
+        """One training (micro-)step on a [B, ...] batch (and the few-shot
+        model's support batch): forward in training mode, criterion,
+        backward, update. ``generator`` (on the engine's device) draws the
+        random subsamples. -> (loss, loss_dict, lr); the loss and the dict's
+        values are detached tensors on the device."""
+        if self.state is None:
+            self.init_state()
+        cfg = self.cfg
+        prepare = epoch <= cfg.prepare_epochs
+        epoch_repr = 0 if prepare else cfg.prepare_epochs + 1
+        lr = self.learning_rate(epoch)
+        tb = self.to_device(batch)
+        self.model.train()
+        try:
+            if self.few_shot:
+                out = self.model(self.to_device(support), tb, train=True, generator=generator)
+            else:
+                out = self.model(tb, train=True, semantic_only=prepare, generator=generator)
+            loss, loss_dict = self.criterion(out, tb, epoch_repr)
+            loss.backward()
+            self.last_voxel_stats = out["voxel_stats"]
+        finally:
+            self.model.eval()
+        self.state.apply_gradients(lr)
+        return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}, lr
 
     def to_device(self, batch: dict) -> dict:
         """A numpy (or tensor) batch as tensors on the engine's device."""

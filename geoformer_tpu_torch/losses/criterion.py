@@ -1,0 +1,136 @@
+"""Supervised set criterion (port of geoformer_tpu/losses/criterion.py).
+
+Prepare phase (epoch <= prepare_epochs): semantic CE only. Full phase: per
+decoder layer, dice + sigmoid-focal on the Hungarian-matched masks and CE
+over the query classes; the match is made once, on the detached last layer,
+and reused for every layer. All losses are masked static-shape math.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from geoformer_tpu_torch.losses.matcher import (
+    auction_assign,
+    build_gt_instances,
+    dice_cost,
+    hungarian_assign,
+)
+
+
+def softmax_cross_entropy_ignore(logits, labels, ignore_label=-100, valid=None):
+    """Mean CE over the entries whose label != ignore (and valid)."""
+    mask = labels != ignore_label
+    if valid is not None:
+        mask = mask & valid
+    safe = torch.where(mask, labels, 0).long()
+    ce = -torch.gather(F.log_softmax(logits, dim=-1), -1, safe[..., None])[..., 0]
+    return torch.where(mask, ce, 0.0).sum() / mask.sum().clamp(min=1)
+
+
+def masked_dice_loss(pred_logits, targets, pair_valid, point_valid, num_gt):
+    """pred_logits/targets [I,F], pair_valid [I], point_valid [F]."""
+    probs = torch.sigmoid(pred_logits) * point_valid[None, :]
+    t = targets * point_valid[None, :]
+    num = 2.0 * (probs * t).sum(-1)
+    den = probs.sum(-1) + t.sum(-1)
+    loss = 1.0 - (num + 1.0) / (den + 1.0)
+    return (loss * pair_valid).sum() / (num_gt + 1e-6)
+
+
+def masked_focal_loss(pred_logits, targets, pair_valid, point_valid, num_gt,
+                      alpha=0.25, gamma=2.0):
+    """Mean over points, then sum over pairs / num_gt."""
+    p = torch.sigmoid(pred_logits)
+    ce = (pred_logits.clamp(min=0) - pred_logits * targets
+          + torch.log1p(torch.exp(-pred_logits.abs())))
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
+    loss = alpha_t * loss * point_valid[None, :]
+    per_pair = loss.sum(-1) / point_valid.sum().clamp(min=1)
+    return (per_pair * pair_valid).sum() / (num_gt + 1e-6)
+
+
+def matched_mask_losses(mask_logits, pred_inds, inst_masks, inst_valid, fg_valid):
+    """One layer's dice and focal: mask_logits [B,Q,F] gathered at the
+    matched queries pred_inds [B,I], per scene over its own instances,
+    summed and divided by B."""
+    pm = torch.gather(mask_logits, 1, pred_inds[..., None].expand(-1, -1, mask_logits.shape[2]))
+    pv = inst_valid.float()
+    dice = focal = 0.0
+    for b in range(mask_logits.shape[0]):
+        ngt = pv[b].sum()
+        dice = dice + masked_dice_loss(pm[b], inst_masks[b], pv[b], fg_valid[b], ngt)
+        focal = focal + masked_focal_loss(pm[b], inst_masks[b], pv[b], fg_valid[b], ngt)
+    bsz = mask_logits.shape[0]
+    return dice / bsz, focal / bsz
+
+
+def matcher(cfg):
+    """The assignment the config asks for: the device auction by default."""
+    return auction_assign if getattr(cfg, "tpu_device_matcher", True) else hungarian_assign
+
+
+class InstSetCriterion:
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.max_inst = cfg.tpu_max_instances
+        self.ignore = cfg.ignore_label
+        self.sem_fixed = "semantic" in cfg.fix_module or "semantic_linear" in cfg.fix_module
+        self._assign = matcher(cfg)
+        self.w_dice = getattr(cfg, "loss_dice_weight", 1.0)
+        self.w_focal = getattr(cfg, "loss_focal_weight", 1.0)
+        self.w_cls = getattr(cfg, "loss_cls_weight", 1.0)
+
+    def __call__(self, outputs, batch, epoch):
+        """-> (loss, loss_dict of scalar tensors)."""
+        semantic_scores = outputs["semantic_scores"]  # [B,P,C]
+        if self.sem_fixed:
+            sem_loss = semantic_scores.new_zeros(())
+        else:
+            sem_loss = softmax_cross_entropy_ignore(
+                semantic_scores, batch["labels"], self.ignore, batch["point_mask"])
+        loss = sem_loss
+        loss_dict = {"sem_loss": sem_loss}
+        if epoch <= self.cfg.prepare_epochs or "mask_logits" not in outputs:
+            loss_dict["loss"] = loss
+            return loss, loss_dict
+
+        fg_idx, fg_valid = outputs["fg_idx"], outputs["fg_valid"]
+        inst_fg = torch.gather(batch["instance_labels"], 1, fg_idx)
+        sem_fg = torch.gather(batch["labels"], 1, fg_idx)
+        inst_masks, inst_valid, inst_sem = build_gt_instances(
+            inst_fg, sem_fg, fg_valid, self.max_inst)
+
+        mask_logits = outputs["mask_logits"]  # [L,B,Q,F]
+        cls_logits = outputs["cls_logits"]  # [L,B,Q,C]
+        query_valid = outputs["query_valid"]
+
+        # match on the last layer (detached), reuse for the other layers
+        with torch.no_grad():
+            cost_d = dice_cost(mask_logits[-1], inst_masks, fg_valid)
+            cls_prob = torch.softmax(cls_logits[-1], dim=-1)  # [B,Q,C]
+            cost_c = -torch.gather(cls_prob, 2, inst_sem[:, None, :].expand_as(cost_d))
+            cost = torch.where(query_valid[:, :, None], cost_d + cost_c, 1e6)
+            pred_inds = self._assign(cost, inst_valid)  # [B,I]
+
+        bsz = mask_logits.shape[1]
+        # class targets: 0 everywhere but at the matched queries
+        cls_label = torch.zeros(cls_logits.shape[1:3], dtype=torch.long,
+                                device=cls_logits.device)
+        cls_label = cls_label.scatter_reduce(1, pred_inds, torch.where(inst_valid, inst_sem, 0),
+                                             reduce="amax")
+        n_layers = mask_logits.shape[0]
+        for layer in range(n_layers):
+            d, f = matched_mask_losses(mask_logits[layer], pred_inds, inst_masks, inst_valid,
+                                       fg_valid)
+            c = sum(softmax_cross_entropy_ignore(cls_logits[layer, b], cls_label[b], -100,
+                                                 query_valid[b]) for b in range(bsz)) / bsz
+            loss = loss + self.w_dice * d + self.w_focal * f + self.w_cls * c
+            if layer == n_layers - 1:
+                loss_dict.update({"dice_loss": d, "focal_loss": f, "cls_loss": c})
+        loss_dict["num_gt"] = inst_valid.float().sum()
+        loss_dict["loss"] = loss
+        return loss, loss_dict

@@ -21,7 +21,10 @@ from torch import nn
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over all leading axes with statistics over valid rows only
     (torch BatchNorm1d semantics: eps 1e-4, momentum 0.1). x [..., C],
-    mask [...]. In eval mode the running statistics are used."""
+    mask [...]. In eval mode the running statistics are used; in training
+    the batch's, and the running statistics take one update a forward
+    unless ``update_stats`` is off (the recompute of a rematerialized
+    block, models/unet.py)."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-4):
         super().__init__()
@@ -31,6 +34,7 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -39,14 +43,18 @@ class MaskedBatchNorm(nn.Module):
             n = m.sum().clamp(min=1.0)
             mean = (x * m).sum(dim=lead) / n
             var = (m * (x - mean) ** 2).sum(dim=lead) / n
-            with torch.no_grad():
-                unbiased = var * n / (n - 1.0).clamp(min=1.0)
-                self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+            if self.update_stats:
+                self._update_running(mean, var, n)
         else:
             mean, var = self.mean, self.var
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.scale + self.bias
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, n) -> None:
+        unbiased = var * n / (n - 1.0).clamp(min=1.0)
+        self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+        self.var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
 
 
 class LayerNorm(nn.Module):
@@ -120,39 +128,25 @@ def masked_softmax(logits, mask, dim):
     return torch.where(mask, out, 0.0)
 
 
-def _chunked_attention(q, k, v, mask, chunk=512):
-    """Exact masked softmax attention with an online softmax over key chunks
-    (no [B,H,N,N] score tensor). q,k,v [B,N,H,D], mask [B,N] (key
-    validity) -> [B,N,H,D]."""
-    b, n, h, d = q.shape
-    scale = 1.0 / math.sqrt(d)
-    neg = torch.finfo(q.dtype).min
-    m_run = q.new_full((b, n, h), neg)
-    s_run = q.new_zeros((b, n, h))
-    acc = q.new_zeros((b, n, h, d))
-    for s in range(0, n, chunk):
-        kb, vb, mb = k[:, s:s + chunk], v[:, s:s + chunk], mask[:, s:s + chunk]
-        if kb.shape[1] < chunk:  # zero-padded tail chunk, as in the JAX scan
-            pad = chunk - kb.shape[1]
-            kb = F.pad(kb, (0, 0, 0, 0, 0, pad))
-            vb = F.pad(vb, (0, 0, 0, 0, 0, pad))
-            mb = F.pad(mb, (0, pad))
-        logits = torch.einsum("bqhd,bkhd->bqhk", q, kb) * scale
-        km = mb[:, None, None, :]
-        logits = torch.where(km, logits, neg)
-        m_new = torch.maximum(m_run, logits.amax(dim=-1))
-        p = torch.where(km, torch.exp(logits - m_new[..., None]), 0.0)
-        corr = torch.exp(m_run - m_new)
-        s_run = s_run * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, vb)
-        m_run = m_new
-    return acc / s_run.clamp(min=1e-30)[..., None]
+def _sdpa_attention(q, k, v, mask):
+    """Exact masked softmax attention without an [N, N] score tensor, in the
+    forward or the backward: the JAX module's chunked online softmax, here
+    F.scaled_dot_product_attention (autograd through a chunk loop would keep
+    every chunk's scores, tens of GB at the U-Net bottleneck's 8,192 voxel
+    slots). q,k,v [B,N,H,D], mask [B,N] (key validity) -> [B,N,H,D]. Masked
+    keys take a bias of the dtype's minimum, so a row with no valid key
+    stays finite."""
+    bias = torch.where(mask, 0.0, torch.finfo(q.dtype).min).to(q.dtype)
+    bias = bias[:, None, None, :].expand(-1, q.shape[2], q.shape[1], -1)
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         attn_mask=bias)
+    return out.transpose(1, 2)
 
 
 class MultiHeadSelfAttention(nn.Module):
     """torch nn.MultiheadAttention semantics over [B, N, d] (JAX module of the
-    same name). Keys of N >= chunk_threshold take the chunked online-softmax
-    path when no attention dropout applies."""
+    same name). Keys of N >= chunk_threshold take ``_sdpa_attention`` when no
+    attention dropout applies (the JAX module's chunked path)."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
                  chunk_threshold: int = 1024):
@@ -172,7 +166,7 @@ class MultiHeadSelfAttention(nn.Module):
         use_chunked = k.shape[1] >= self.chunk_threshold and (
             self.dropout == 0.0 or not self.training)
         if use_chunked:
-            out = _chunked_attention(q, k, v, mask)
+            out = _sdpa_attention(q, k, v, mask)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d_head)
             attn = masked_softmax(logits, mask[:, None, None, :], dim=-1)

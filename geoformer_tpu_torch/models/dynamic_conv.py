@@ -60,11 +60,21 @@ def geodesic_corrected_coords(rel_coords, geo_qp, max_geo):
     return torch.where(unreached, rel_coords + shift, rel_coords)
 
 
+def _rounded(x, compute_dtype):
+    """x rounded to compute_dtype and widened back to float32: the JAX
+    module's bf16 operands under an f32-accumulating product."""
+    return x if compute_dtype is None else x.to(compute_dtype).float()
+
+
 def mask_heads_forward(geo_dist, mask_features, w1, b1, w2, b2, coords, query_locs,
-                       q_chunk: int = 64):
+                       q_chunk: int = 64, compute_dtype=None):
     """Per-scene dynamic conv. geo_dist [P,Q], mask_features [P,m], w1
     [Q,m,c_in], b1 [Q,m], w2 [Q,m], b2 [Q], coords [P,3], query_locs [Q,3]
-    -> mask logits [Q,P]."""
+    -> mask logits [Q,P]. ``compute_dtype`` (bf16) rounds the first layer's
+    operands (features, weights, relative coords) to it; the products and
+    everything after them stay float32, as in the JAX module."""
+    mask_features = _rounded(mask_features, compute_dtype)
+    w1 = _rounded(w1, compute_dtype)
     q = w1.shape[0]
     geo_qp = geo_dist.T  # [Q,P]
     # per-query max with the global fallback, over ALL queries
@@ -74,7 +84,7 @@ def mask_heads_forward(geo_dist, mask_features, w1, b1, w2, b2, coords, query_lo
     for s in range(0, q, q_chunk):
         sl = slice(s, s + q_chunk)
         rel = query_locs[sl, None, :] - coords[None, :, :]  # [Qc,P,3]
-        rel = geodesic_corrected_coords(rel, geo_qp[sl], max_geo[sl])
+        rel = _rounded(geodesic_corrected_coords(rel, geo_qp[sl], max_geo[sl]), compute_dtype)
         # first layer split over [rel | mask features]; hidden [Qc,m,P]
         h = (torch.einsum("qpc,qmc->qmp", rel, w1[sl, :, :3])
              + torch.einsum("pf,qmf->qmp", mask_features, w1[sl, :, 3:])

@@ -1,16 +1,25 @@
-"""GeoFormer, fully supervised, eval forward (port of
-geoformer_tpu/models/geoformer.py: ModelConfig, pack_by_mask,
-strided_pack_by_mask, GeoFormerBase, GeoFormer eval, generate_proposal).
+"""GeoFormer, fully supervised (port of geoformer_tpu/models/geoformer.py:
+ModelConfig, pack_by_mask, random_pack_by_mask, strided_pack_by_mask,
+GeoFormerBase, GeoFormer, generate_proposal).
 
 voxelize -> sparse U-Net -> semantic head -> fg packing -> mask tower ->
-set aggregator (strided subsample + FPS + ball group) -> radius kNN +
-two-level geodesic -> Fourier embeddings -> rel-attention decoder ->
-dynamic-conv mask head -> proposals.
+set aggregator (subsample + FPS + ball group) -> radius kNN + two-level
+geodesic -> Fourier embeddings -> rel-attention decoder -> dynamic-conv mask
+head -> proposals (eval) or every decoder layer's outputs on a random fg
+subsample (training).
 
 Submodule names follow the JAX variable tree (``backbone``, ``semantic``,
 ``mask_tower{i}``, ``decoder/layer{i}/...``), so weights.from_jax_variables
-maps one onto the other. Training branches (random subsampling, the
-per-layer outputs for the loss) wait for the training slice.
+maps one onto the other.
+
+Training (``forward(batch, train=True)``, the model in ``train()`` mode):
+the aggregator subsamples the foreground at random and the mask head runs
+on a random ``train_subsample`` of it (``random_pack_by_mask``, drawn from
+the caller's ``torch.Generator``). A module named in ``fix_modules`` (the
+config's ``fix_module``) runs in eval mode, and its output is detached, as
+the JAX model's ``train_for`` and ``stop_gradient`` do. The radius graph and
+the geodesic solve take only data and run without a gradient; so do the
+FPS (K2) and the k-smallest selection (K1), whose outputs are indices.
 """
 
 from __future__ import annotations
@@ -94,6 +103,16 @@ class ModelConfig:
     brick_fold_train: bool = False
     fix_modules: tuple = ()
 
+    def is_fixed(self, name: str) -> bool:
+        return name in self.fix_modules
+
+    def train_for(self, name: str, train: bool) -> bool:
+        return train and not self.is_fixed(name)
+
+    @property
+    def compute_dtype(self):
+        return torch.bfloat16 if self.bf16 else None
+
     @classmethod
     def from_cfg(cls, cfg):
         fix = tuple(cfg.fix_module)
@@ -163,6 +182,43 @@ def pack_by_mask(mask: torch.Tensor, capacity: int):
     return idx, torch.gather(mask, 1, idx)
 
 
+def draw_subsample(mask: torch.Tensor, capacity: int, generator: torch.Generator):
+    """The random draws of ``random_pack_by_mask`` on mask [B,P]: one
+    rotation offset in [0, n_valid) per scene [B] when capacity >= P, else
+    uniform scores [B,P]. ``generator`` lives on mask's device."""
+    b, p = mask.shape
+    if capacity >= p:
+        n_valid = mask.sum(dim=1).clamp(min=1)
+        u = torch.rand(b, generator=generator, device=mask.device)
+        return torch.minimum((u * n_valid).long(), n_valid - 1)
+    return torch.rand(b, p, generator=generator, device=mask.device)
+
+
+def pack_from_draws(mask: torch.Tensor, capacity: int, draws: torch.Tensor):
+    """random_pack_by_mask given its draws (``draw_subsample``). capacity >=
+    P: the valid prefix rotated by the offset (P entries, the capacity
+    clamped as the JAX slice clamps it); else the valid entries in the
+    order of their scores (stable), the first ``capacity`` of them."""
+    b, p = mask.shape
+    if capacity >= p:
+        n_valid = mask.sum(dim=1).clamp(min=1)[:, None]
+        pos = torch.arange(p, device=mask.device)[None, :]
+        idx = torch.where(pos < n_valid, (pos + draws[:, None]) % n_valid, pos)
+    else:
+        scores = torch.where(mask, draws, 2.0)
+        idx = torch.argsort(scores, dim=1, stable=True)[:, :capacity]
+    return idx, torch.gather(mask, 1, idx)
+
+
+def random_pack_by_mask(mask: torch.Tensor, capacity: int, generator: torch.Generator):
+    """Random subsample of the valid entries of a PACKED prefix mask [B,P]
+    (the training path; eval uses strided_pack_by_mask) -> (idx [B,cap],
+    valid [B,cap]). When capacity covers the whole array the subsample is
+    the identity set and the shuffle a random rotation of the valid prefix,
+    as in the JAX function."""
+    return pack_from_draws(mask, capacity, draw_subsample(mask, capacity, generator))
+
+
 def strided_pack_by_mask(mask: torch.Tensor, capacity: int):
     """Deterministic uniform subsample of a PACKED prefix mask [B,P]: every
     (n/capacity)-th entry when the n valid entries exceed capacity, else
@@ -187,7 +243,8 @@ class GeoFormerBase(nn.Module):
         self.mc = mc
         m = mc.m
         in_ch = mc.input_channel + (3 if mc.use_coords else 0)
-        self.backbone = SparseUNetBackbone(in_ch, m, mc.depth)
+        self.backbone = SparseUNetBackbone(in_ch, m, mc.depth, compute_dtype=mc.compute_dtype,
+                                           remat=mc.remat)
         self.semantic = SemanticHead(m, mc.classes)
         for i in range(3):
             self.add_module(f"mask_tower{i}", MLPConvBlock(m, m))
@@ -208,6 +265,24 @@ class GeoFormerBase(nn.Module):
         # ends in a device synchronize); None = off, no synchronizing
         self.stage_ms = None
         self._t = 0.0
+
+    def train(self, mode: bool = True):
+        """Training mode, with every fixed module (``ModelConfig.is_fixed``)
+        in eval mode: running statistics, no dropout."""
+        super().train(mode)
+        if mode:
+            for name, module in self.named_children():
+                if self.mc.is_fixed(_FIX_NAME.get(name, name)):
+                    module.eval()
+        return self
+
+    def _check_mode(self, train: bool) -> None:
+        if train != self.training:
+            raise ValueError(f"forward(train={train}) on a model in "
+                             f"{'training' if self.training else 'eval'} mode")
+
+    def _detach_if_fixed(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return x.detach() if self.mc.is_fixed(name) else x
 
     def _stage(self, name: str | None) -> None:
         """Close the running stage as ``name`` (None: start the clock)."""
@@ -230,8 +305,9 @@ class GeoFormerBase(nn.Module):
         if mc.use_coords:
             feats = torch.cat([feats, batch["points"]], dim=-1)
         voxel_out = self.backbone(voxel_mean_pool(feats, plan.grids[0]), plan)
-        point_feats = devoxelize(voxel_out, plan.grids[0])
-        semantic_scores = self.semantic(point_feats, batch["point_mask"])
+        point_feats = self._detach_if_fixed("backbone", devoxelize(voxel_out, plan.grids[0]))
+        semantic_scores = self._detach_if_fixed(
+            "semantic", self.semantic(point_feats, batch["point_mask"]))
         semantic_preds = torch.where(batch["point_mask"], semantic_scores.argmax(dim=-1), -1)
         return point_feats, semantic_scores, semantic_preds, plan_stats(plan)
 
@@ -247,31 +323,41 @@ class GeoFormerBase(nn.Module):
         x = fg_feats
         for i in range(3):
             x = getattr(self, f"mask_tower{i}")(x, fg_valid)
-        return self.mask_out(x)
+        return self._detach_if_fixed("mask_tower", self.mask_out(x))
 
     # ---------------- aggregator ----------------
 
-    def forward_aggregator(self, fg_locs, fg_feats, fg_valid):
-        """Strided subsample of fg -> FPS K centers -> ball group -> SharedMLP.
-        Returns context_locs [B,K,3], context_feats [B,K,2m], context_inds
-        [B,K] (into the fg arrays), context_valid [B,K]."""
+    def forward_aggregator(self, fg_locs, fg_feats, fg_valid, train: bool = False,
+                           generator: torch.Generator | None = None):
+        """Subsample of fg (random in training, strided at eval) -> FPS K
+        centers -> ball group -> SharedMLP. Returns context_locs [B,K,3],
+        context_feats [B,K,2m], context_inds [B,K] (into the fg arrays),
+        context_valid [B,K]."""
         mc = self.mc
-        sub_idx, sub_valid = strided_pack_by_mask(fg_valid, mc.n_downsampling)
+        if mc.train_for("set_aggregator", train):
+            sub_idx, sub_valid = random_pack_by_mask(fg_valid, mc.n_downsampling, generator)
+        else:
+            sub_idx, sub_valid = strided_pack_by_mask(fg_valid, mc.n_downsampling)
         sub_locs = gather_rows(fg_locs, sub_idx)
         sub_feats = gather_rows(fg_feats, sub_idx)
         new_xyz, grouped, _, inds, inds_valid, hit = self.set_aggregator.group(
             sub_locs, sub_feats, sub_valid, mc.n_decode_point)
         center_ok = hit.any(dim=-1) & inds_valid
         group_mask = center_ok[..., None].expand(grouped.shape[:-1])
-        context_feats = self.set_aggregator(grouped, group_mask)
+        context_feats = self._detach_if_fixed("set_aggregator",
+                                              self.set_aggregator(grouped, group_mask))
         context_inds = torch.gather(sub_idx, 1, inds)
         return new_xyz, context_feats, context_inds, inds_valid
 
     # ---------------- geodesic ----------------
 
-    def forward_geodesic(self, fg_locs, fg_valid, context_inds, context_valid):
+    @torch.no_grad()
+    def forward_geodesic(self, fg_locs, fg_valid, context_inds, context_valid,
+                         train: bool = False):
         """Radius-kNN graph + two-level geodesic solve -> (geo [B,F,Q],
-        n_radius_cell_overflow [B], n_radius_window_overflow [B])."""
+        n_radius_cell_overflow [B], n_radius_window_overflow [B]). Training
+        takes ``geodesic_steps_train`` coarse steps, eval
+        ``geodesic_steps_eval``."""
         mc = self.mc
         if not mc.geodesic_hier:
             raise NotImplementedError("only the hierarchical geodesic solver is ported")
@@ -290,7 +376,8 @@ class GeoFormerBase(nn.Module):
         nbr_d = torch.sqrt(d2.clamp(max=4.0).clamp(min=0.0))
         geo, self.geodesic_passes = geodesic_distance_hier(
             nbr_i, nbr_d, context_inds[:, :q], context_valid[:, :q], fg_valid,
-            mc.geodesic_radius, mc.geodesic_steps_eval, fg_locs,
+            mc.geodesic_radius, mc.geodesic_steps_train if train else mc.geodesic_steps_eval,
+            fg_locs,
             fine_sweeps=mc.geodesic_fine_sweeps, cell_factor=mc.geodesic_cell_factor,
             k_sub=mc.geodesic_k_sub, fine_k=mc.geodesic_fine_k or None,
             coarse_eps=mc.geodesic_coarse_eps)
@@ -323,15 +410,16 @@ class GeoFormerBase(nn.Module):
         """``enc2dec`` is the model's own encoder_to_decoder_projection (2m
         wide in the supervised model, 6m in the few-shot one)."""
         q = self.mc.n_query_points
-        ctx_feats = enc2dec(context_feats, context_valid)
+        ctx_feats = self._detach_if_fixed("encoder_to_decoder_projection",
+                                          enc2dec(context_feats, context_valid))
         query_locs = context_locs[:, :q]
         query_valid = context_valid[:, :q]
         ra, rb = self._pos_range(pc_mins, pc_maxs)
         query_pos = self.query_projection(self.pos_embedding(query_locs, ra, rb), query_valid)
         rel_pos = self.rel_pos_tensor(query_locs, context_locs, geo_dist, context_inds,
                                       pc_mins, pc_maxs)
-        dec_outputs = self.decoder(ctx_feats[:, :q], ctx_feats, query_pos, rel_pos,
-                                   query_valid, context_valid)
+        dec_outputs = self._detach_if_fixed("decoder", self.decoder(
+            ctx_feats[:, :q], ctx_feats, query_pos, rel_pos, query_valid, context_valid))
         return dec_outputs, query_locs, query_valid
 
     # ---------------- mask head ----------------
@@ -342,18 +430,46 @@ class GeoFormerBase(nn.Module):
         (None without a ``sem_head``), dynamic-conv mask logits [B,Q,F]
         (-1e4 at pad fg slots)."""
         cls_logits = sem_head(x, query_valid) if sem_head is not None else None
-        params = self.controller_head(x, query_valid)
+        params = self._detach_if_fixed("controller", self.controller_head(x, query_valid))
         w1, b1, w2, b2 = parse_dynamic_params(params, self.mc.m, use_coords=True)
         mask_logits = torch.stack([
             mask_heads_forward(geo_dist[i], mask_feats[i], w1[i], b1[i], w2[i], b2[i],
-                               fg_locs[i], query_locs[i])
+                               fg_locs[i], query_locs[i], compute_dtype=self.mc.compute_dtype)
             for i in range(x.shape[0])])
         mask_logits = torch.where(fg_valid[:, None, :], mask_logits, -1e4)
         return cls_logits, mask_logits
 
+    def layer_predictions(self, sem_head, dec_outputs, geo_dist, mask_feats, fg_locs,
+                          fg_valid, query_locs, query_valid, train: bool,
+                          generator: torch.Generator | None):
+        """Training: every decoder layer's predictions on a random
+        ``train_subsample`` of the fg slots -> (cls_logits [L,B,Q,C] or
+        None, mask_logits [L,B,Q,S], sub_idx [B,S], sub_valid [B,S]).
+        Eval: the last layer's on every fg slot (sub_idx None)."""
+        sub_idx = None
+        if train:
+            sub_idx, fg_valid = random_pack_by_mask(fg_valid, self.mc.train_subsample, generator)
+            mask_feats = gather_rows(mask_feats, sub_idx)
+            fg_locs = gather_rows(fg_locs, sub_idx)
+            geo_dist = gather_rows(geo_dist, sub_idx)
+        else:
+            dec_outputs = dec_outputs[-1:]
+        cls, masks = zip(*(self.get_mask_prediction(sem_head, x, geo_dist, mask_feats, fg_locs,
+                                                    fg_valid, query_locs, query_valid)
+                           for x in dec_outputs))
+        cls_logits = torch.stack(cls) if sem_head is not None else None
+        return cls_logits, torch.stack(masks), sub_idx, fg_valid
+
+
+# child module name -> the name ModelConfig.is_fixed knows it by (the JAX
+# model's train_for names); detr_sem_head is never fixed there
+_FIX_NAME = {"mask_tower0": "mask_tower", "mask_tower1": "mask_tower",
+             "mask_tower2": "mask_tower", "mask_out": "mask_tower",
+             "controller_head": "controller", "detr_sem_head": ""}
+
 
 class GeoFormer(GeoFormerBase):
-    """Fully-supervised GeoFormer, eval forward."""
+    """Fully-supervised GeoFormer."""
 
     def __init__(self, mc: ModelConfig):
         super().__init__(mc)
@@ -363,28 +479,38 @@ class GeoFormer(GeoFormerBase):
         self.detr_sem_head = GenericMLP(mc.dec_dim, (mc.dec_dim, mc.dec_dim), mc.classes,
                                         norm="bn")
 
-    def forward(self, batch):
-        """Eval forward. batch: points [B,P,3], feats [B,P,C], coords
-        [B,P,3] int, point_mask [B,P], pc_mins/pc_maxs [B,3]."""
+    def forward(self, batch, train: bool = False, semantic_only: bool = False,
+                generator: torch.Generator | None = None):
+        """batch: points [B,P,3], feats [B,P,C], coords [B,P,3] int,
+        point_mask [B,P], pc_mins/pc_maxs [B,3]. ``train`` must match the
+        model's mode; ``semantic_only`` (the prepare phase) stops after the
+        semantic head; ``generator`` draws the training subsamples. Outputs:
+        semantic_scores, voxel_stats, fg_idx/fg_valid (of the mask head's fg
+        slots), query_valid, cls_logits [L,B,Q,C] and mask_logits [L,B,Q,F]
+        (L = every decoder layer in training, the last one at eval), and at
+        eval the proposals."""
+        self._check_mode(train)
         mc = self.mc
         outputs = {}
         self._stage(None)
         point_feats, semantic_scores, semantic_preds, vox_stats = self.forward_backbone(batch)
         outputs["semantic_scores"] = semantic_scores
+        outputs["voxel_stats"] = vox_stats
         self._stage("backbone")
+        if semantic_only:
+            return outputs
 
         fg_idx, fg_valid = self.foreground_pack(semantic_preds, batch["point_mask"])
         fg_locs = gather_rows(batch["points"], fg_idx)
         fg_feats = gather_rows(point_feats, fg_idx)
-        outputs["fg_idx"], outputs["fg_valid"] = fg_idx, fg_valid
 
         mask_feats = self.run_mask_tower(fg_feats, fg_valid)
         self._stage("foreground")
         context_locs, context_feats, context_inds, context_valid = self.forward_aggregator(
-            fg_locs, fg_feats, fg_valid)
+            fg_locs, fg_feats, fg_valid, train, generator)
         self._stage("aggregator")
         geo_dist, graph_ovf, graph_wovf = self.forward_geodesic(
-            fg_locs, fg_valid, context_inds, context_valid)
+            fg_locs, fg_valid, context_inds, context_valid, train)
         self._stage("geodesic")
         outputs["voxel_stats"] = dict(vox_stats, n_radius_cell_overflow=graph_ovf,
                                       n_radius_window_overflow=graph_wovf)
@@ -395,16 +521,20 @@ class GeoFormer(GeoFormerBase):
         outputs["query_valid"] = query_valid
         self._stage("decoder")
 
-        cls_logits, mask_logits = self.get_mask_prediction(
-            self.detr_sem_head, dec_outputs[-1], geo_dist, mask_feats, fg_locs, fg_valid,
-            query_locs, query_valid)
+        cls_logits, mask_logits, sub_idx, sub_valid = self.layer_predictions(
+            self.detr_sem_head, dec_outputs, geo_dist, mask_feats, fg_locs, fg_valid,
+            query_locs, query_valid, train, generator)
         self._stage("mask_head")
-        outputs["cls_logits"] = cls_logits[None]  # [1,B,Q,classes]
-        outputs["mask_logits"] = mask_logits[None]  # [1,B,Q,F]
+        outputs["cls_logits"], outputs["mask_logits"] = cls_logits, mask_logits
+        if train:
+            outputs["fg_idx"] = torch.gather(fg_idx, 1, sub_idx)
+            outputs["fg_valid"] = sub_valid
+            return outputs
 
+        outputs["fg_idx"], outputs["fg_valid"] = fg_idx, fg_valid
         sem_fg = gather_rows(torch.softmax(semantic_scores, dim=-1), fg_idx)
         outputs["proposals"] = generate_proposal(
-            mask_logits, cls_logits, fg_idx, fg_valid, sem_fg, batch["point_mask"],
+            mask_logits[-1], cls_logits[-1], fg_idx, fg_valid, sem_fg, batch["point_mask"],
             logit_thresh=0.5, score_thresh=mc.test_score_thresh,
             npoint_thresh=mc.test_npoint_thresh)
         self._stage("proposals")

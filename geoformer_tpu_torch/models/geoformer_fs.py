@@ -1,4 +1,4 @@
-"""GeoFormerFS: episodic few-shot model, eval paths (port of
+"""GeoFormerFS: episodic few-shot model (port of
 geoformer_tpu/models/geoformer_fs.py).
 
 Adds to the supervised model:
@@ -10,11 +10,14 @@ Adds to the supervised model:
 
 ``encode_scene`` is support-independent and cacheable; ``decode_with_support``
 is the cheap per-support leg, which the test driver runs per class and run
-against one cached scene. The training branch of the decode (random fg
-subsample, per-layer outputs) waits for the training slice.
+against one cached scene. In training the decode predicts with every decoder
+layer on a random fg subsample, and ``process_support`` still runs without a
+gradient and with its modules in eval mode, as in the JAX model.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -51,8 +54,22 @@ class SimilarityNet(nn.Module):
         return self.Dense_2(h)[..., 0]
 
 
+@contextlib.contextmanager
+def _eval_mode(*modules: nn.Module):
+    """The modules (and their children) in eval mode, their own modes back
+    afterwards."""
+    saved = [(m, m.training) for mod in modules for m in mod.modules()]
+    for mod in modules:
+        mod.eval()
+    try:
+        yield
+    finally:
+        for m, mode in saved:
+            m.training = mode
+
+
 class GeoFormerFS(GeoFormerBase):
-    """Few-shot GeoFormer, eval forward."""
+    """Few-shot GeoFormer."""
 
     def __init__(self, mc: ModelConfig):
         super().__init__(mc)
@@ -69,10 +86,15 @@ class GeoFormerFS(GeoFormerBase):
 
     # ---------------- support ----------------
 
+    @torch.no_grad()
     def process_support(self, support_batch):
         """Support scene (with ``support_masks`` [B,P]) -> [B, 2m] embedding:
         the mean over the valid ones of 32 avg-pooled ball groups centered
-        on the masked instance."""
+        on the masked instance. No gradient, and eval mode in training too."""
+        with _eval_mode(self.backbone, self.semantic, self.set_aggregator):
+            return self._support_embedding(support_batch)
+
+    def _support_embedding(self, support_batch):
         point_feats, _, _, _ = self.forward_backbone(support_batch)
         sup_mask = (support_batch["support_masks"] > 0) & support_batch["point_mask"]
         idx, valid = pack_by_mask(sup_mask, min(SUPPORT_CAPACITY, point_feats.shape[1]))
@@ -88,7 +110,8 @@ class GeoFormerFS(GeoFormerBase):
 
     # ---------------- scene encoding (cacheable) ----------------
 
-    def encode_scene(self, scene_batch):
+    def encode_scene(self, scene_batch, train: bool = False,
+                     generator: torch.Generator | None = None):
         point_feats, semantic_scores, semantic_preds, vox_stats = self.forward_backbone(
             scene_batch)
         fg_idx, fg_valid = self.foreground_pack(semantic_preds, scene_batch["point_mask"])
@@ -96,9 +119,9 @@ class GeoFormerFS(GeoFormerBase):
         fg_feats = gather_rows(point_feats, fg_idx)
         mask_feats = self.run_mask_tower(fg_feats, fg_valid)
         context_locs, context_feats, context_inds, context_valid = self.forward_aggregator(
-            fg_locs, fg_feats, fg_valid)
+            fg_locs, fg_feats, fg_valid, train, generator)
         geo_dist, graph_ovf, graph_wovf = self.forward_geodesic(
-            fg_locs, fg_valid, context_inds, context_valid)
+            fg_locs, fg_valid, context_inds, context_valid, train)
         return {
             "semantic_scores": semantic_scores,
             "voxel_stats": dict(vox_stats, n_radius_cell_overflow=graph_ovf,
@@ -116,10 +139,13 @@ class GeoFormerFS(GeoFormerBase):
 
     # ---------------- fused decode ----------------
 
-    def decode_with_support(self, cache, support_embeddings, pc_mins, pc_maxs):
+    def decode_with_support(self, cache, support_embeddings, pc_mins, pc_maxs,
+                            train: bool = False, generator: torch.Generator | None = None):
         """cache from ``encode_scene``, support_embeddings [B,2m] ->
-        mask_logits [1,B,Q,F] (the last decoder layer), similarity [B,Q]
-        logits, and the cache's fg_idx, fg_valid, query_valid."""
+        mask_logits [L,B,Q,F] (every decoder layer on a random fg subsample
+        in training, the last layer on every fg slot at eval), similarity
+        [B,Q] logits, and fg_idx, fg_valid (of the mask head's fg slots),
+        query_valid."""
         q = self.mc.n_query_points
         ctx = cache["context_feats"]  # [B,K,2m]
         sup = support_embeddings[:, None, :]  # [B,1,2m]
@@ -127,15 +153,17 @@ class GeoFormerFS(GeoFormerBase):
         dec_outputs, query_locs, query_valid = self.run_decoder(
             self.encoder_to_decoder_projection, cache["context_locs"], aggregation,
             cache["context_valid"], cache["geo_dist"], cache["context_inds"], pc_mins, pc_maxs)
-        similarity = self.similarity_net(aggregation[:, :q], query_valid)
-        _, mask_logits = self.get_mask_prediction(
-            None, dec_outputs[-1], cache["geo_dist"], cache["mask_feats"], cache["fg_locs"],
-            cache["fg_valid"], query_locs, query_valid)
+        similarity = self._detach_if_fixed("similarity_net",
+                                           self.similarity_net(aggregation[:, :q], query_valid))
+        _, mask_logits, sub_idx, fg_valid = self.layer_predictions(
+            None, dec_outputs, cache["geo_dist"], cache["mask_feats"], cache["fg_locs"],
+            cache["fg_valid"], query_locs, query_valid, train, generator)
+        fg_idx = cache["fg_idx"] if sub_idx is None else torch.gather(cache["fg_idx"], 1, sub_idx)
         return {
-            "mask_logits": mask_logits[None],
+            "mask_logits": mask_logits,
             "similarity": similarity,
-            "fg_idx": cache["fg_idx"],
-            "fg_valid": cache["fg_valid"],
+            "fg_idx": fg_idx,
+            "fg_valid": fg_valid,
             "query_valid": query_valid,
         }
 
@@ -148,18 +176,21 @@ class GeoFormerFS(GeoFormerBase):
             score_thresh=mc.test_score_thresh, npoint_thresh=mc.test_npoint_thresh,
             sim_score_thresh=mc.similarity_thresh)
 
-    def forward(self, support_batch, scene_batch, support_embeddings=None):
-        """Eval forward: encode, embed the support (unless given), decode,
-        proposals."""
-        cache = self.encode_scene(scene_batch)
+    def forward(self, support_batch, scene_batch, train: bool = False,
+                support_embeddings=None, generator: torch.Generator | None = None):
+        """Encode the scene, embed the support (unless given), decode, and at
+        eval the proposals. ``train`` must match the model's mode."""
+        self._check_mode(train)
+        cache = self.encode_scene(scene_batch, train, generator)
         outputs = {"semantic_scores": cache["semantic_scores"],
                    "voxel_stats": cache["voxel_stats"]}
         if support_embeddings is None:
             support_embeddings = self.process_support(support_batch)
         dec = self.decode_with_support(cache, support_embeddings, scene_batch["pc_mins"],
-                                       scene_batch["pc_maxs"])
+                                       scene_batch["pc_maxs"], train, generator)
         outputs.update(dec)
-        outputs["proposals"] = self.proposals(dec, scene_batch["point_mask"])
+        if not train:
+            outputs["proposals"] = self.proposals(dec, scene_batch["point_mask"])
         return outputs
 
 

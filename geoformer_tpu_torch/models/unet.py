@@ -6,13 +6,23 @@ k2s2 down / inverse-k2 up over the GridPlan rulebooks, skip concat + 2 tail
 blocks; the two deepest levels run a small dense transformer encoder over
 their voxels. The JAX module also carries dense-brick / x-folded layouts for
 the TPU; they are layout-only (same parameters) and not ported.
+
+``compute_dtype`` (bf16) narrows the sparse convolutions' gathers and
+products (ops/sparse_conv.py); levels, batch norms and the identity branch
+stay float32, as in the JAX module's rulebook path. ``remat`` recomputes
+each residual block in the backward pass instead of keeping its
+activations (``torch.utils.checkpoint``, the JAX module's ``nn.remat``), in
+training only.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Sequence
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
@@ -31,8 +41,9 @@ def _conv_param(*shape) -> nn.Parameter:
 class ResidualBlock(nn.Module):
     """(BN-ReLU-SubM3-BN-ReLU-SubM3) + identity (1x1 if channels change)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         if in_channels != out_channels:
             self.i_branch = _conv_param(in_channels, out_channels)
         else:
@@ -45,10 +56,29 @@ class ResidualBlock(nn.Module):
     def forward(self, feats, nbr, vmask):
         identity = feats if self.i_branch is None else dense_1x1(feats, self.i_branch)
         x = F.relu(self.MaskedBatchNorm_0(feats, vmask))
-        x = subm_conv(x, nbr, self.conv1)
+        x = subm_conv(x, nbr, self.conv1, self.compute_dtype)
         x = F.relu(self.MaskedBatchNorm_1(x, vmask))
-        x = subm_conv(x, nbr, self.conv2)
+        x = subm_conv(x, nbr, self.conv2, self.compute_dtype)
         return torch.where(vmask[..., None], x + identity, 0.0)
+
+
+@contextlib.contextmanager
+def _stats_frozen(block: nn.Module):
+    """The recompute of a rematerialized block leaves the batch norms'
+    running statistics alone: the forward already updated them once, as
+    the JAX nn.remat does."""
+    bns = [m for m in block.modules() if isinstance(m, MaskedBatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
+
+
+def _remat_contexts(block: nn.Module):
+    return contextlib.nullcontext(), _stats_frozen(block)
 
 
 class BottleneckTransformer(nn.Module):
@@ -89,23 +119,27 @@ class UBlock(nn.Module):
     """Recursive U-Net block over nPlanes at level ``level``; sparse
     [B, V_level, C] in and out."""
 
-    def __init__(self, n_planes: Sequence[int], block_reps: int = 2, level: int = 0):
+    def __init__(self, n_planes: Sequence[int], block_reps: int = 2, level: int = 0,
+                 compute_dtype=None, remat: bool = False):
         super().__init__()
         self.level = level
         self.block_reps = block_reps
         self.n_planes = tuple(n_planes)
+        self.compute_dtype = compute_dtype
+        self.remat = remat
         c0 = n_planes[0]
         for i in range(block_reps):
-            self.add_module(f"block{i}", ResidualBlock(c0, c0))
+            self.add_module(f"block{i}", ResidualBlock(c0, c0, compute_dtype))
         if len(n_planes) > 1:
             c1 = n_planes[1]
             self.conv_bn = MaskedBatchNorm(c0)
             self.conv_w = _conv_param(8, c0, c1)
-            self.u = UBlock(n_planes[1:], block_reps, level + 1)
+            self.u = UBlock(n_planes[1:], block_reps, level + 1, compute_dtype, remat)
             self.deconv_bn = MaskedBatchNorm(c1)
             self.deconv_w = _conv_param(8, c1, c0)
             for i in range(block_reps):
-                self.add_module(f"block_tail{i}", ResidualBlock(c0 * (2 - i), c0))
+                self.add_module(f"block_tail{i}",
+                                ResidualBlock(c0 * (2 - i), c0, compute_dtype))
         self.has_transformer = len(n_planes) <= 2
         if self.has_transformer:
             d_model = 128
@@ -113,23 +147,31 @@ class UBlock(nn.Module):
             self.transformer = BottleneckTransformer(d_model)
             self.after_transformer_linear = nn.Linear(d_model, c0)
 
+    def _block(self, name: str, x, nbr, vmask):
+        block = getattr(self, name)
+        if self.remat and self.training:
+            return torch.utils.checkpoint.checkpoint(
+                block, x, nbr, vmask, use_reentrant=False,
+                context_fn=functools.partial(_remat_contexts, block))
+        return block(x, nbr, vmask)
+
     def forward(self, x, plan: GridPlan):
         lvl = self.level
         nbr = plan.subm[lvl]
         vmask = plan.grids[lvl].voxel_mask
         for i in range(self.block_reps):
-            x = getattr(self, f"block{i}")(x, nbr, vmask)
+            x = self._block(f"block{i}", x, nbr, vmask)
         if len(self.n_planes) > 1:
             identity = x
             d = F.relu(self.conv_bn(x, vmask))
-            d = down_conv(d, plan.links[lvl], self.conv_w)
+            d = down_conv(d, plan.links[lvl], self.conv_w, self.compute_dtype)
             d = self.u(d, plan)
             u = F.relu(self.deconv_bn(d, plan.grids[lvl + 1].voxel_mask))
-            u = up_conv(u, plan.links[lvl], self.deconv_w)
+            u = up_conv(u, plan.links[lvl], self.deconv_w, self.compute_dtype)
             u = torch.where(vmask[..., None], u, 0.0)
             x = torch.cat([identity, u], dim=-1)
             for i in range(self.block_reps):
-                x = getattr(self, f"block_tail{i}")(x, nbr, vmask)
+                x = self._block(f"block_tail{i}", x, nbr, vmask)
         if self.has_transformer:
             xyz = plan.grids[lvl].voxel_coords.to(x.dtype)
             h = self.before_transformer_linear(x)
@@ -143,15 +185,18 @@ class SparseUNetBackbone(nn.Module):
     """input_conv + UBlock + output BN/ReLU: voxel feats [B,V0,Cin] ->
     [B,V0,m]."""
 
-    def __init__(self, in_channels: int, m: int, depth: int = 7, block_reps: int = 2):
+    def __init__(self, in_channels: int, m: int, depth: int = 7, block_reps: int = 2,
+                 compute_dtype=None, remat: bool = False):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.input_conv = _conv_param(27, in_channels, m)
-        self.unet = UBlock([m * (i + 1) for i in range(depth)], block_reps, level=0)
+        self.unet = UBlock([m * (i + 1) for i in range(depth)], block_reps, level=0,
+                           compute_dtype=compute_dtype, remat=remat)
         self.output_bn = MaskedBatchNorm(m)
 
     def forward(self, voxel_feats, plan: GridPlan):
         vmask0 = plan.grids[0].voxel_mask
-        x = subm_conv(voxel_feats, plan.subm[0], self.input_conv)
+        x = subm_conv(voxel_feats, plan.subm[0], self.input_conv, self.compute_dtype)
         x = torch.where(vmask0[..., None], x, 0.0)
         x = self.unet(x, plan)
         return F.relu(self.output_bn(x, vmask0))

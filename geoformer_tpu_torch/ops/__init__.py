@@ -24,3 +24,50 @@ def pad_row(x: torch.Tensor, value=0) -> torch.Tensor:
     shape = list(x.shape)
     shape[-2] = 1
     return torch.cat([x, x.new_full(shape, value)], dim=-2)
+
+
+def padded_table(x: torch.Tensor) -> torch.Tensor:
+    """x [B, N, C] -> the rows of every scene and one zero row after them,
+    [B * N + 1, C]: the table that ``take_rows`` reads."""
+    return torch.cat([x.reshape(-1, x.shape[-1]), x.new_zeros(1, x.shape[-1])])
+
+
+class _TakeRows(torch.autograd.Function):
+    """Row gather whose backward is an index_add_ (atomic adds on the card)
+    into the table's gradient, with every read of the zero row sent to one of
+    SINKS scratch rows instead, then dropped."""
+
+    SINKS = 1024
+
+    @staticmethod
+    def forward(ctx, table, flat):
+        ctx.save_for_backward(flat)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table.index_select(0, flat.reshape(-1)).reshape(flat.shape + table.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat, = ctx.saved_tensors
+        rows, c = ctx.table_shape
+        flat = flat.reshape(-1)
+        pad = rows - 1
+        sink = rows + torch.arange(flat.numel(), device=flat.device) % _TakeRows.SINKS
+        acc = torch.zeros(rows + _TakeRows.SINKS, c, dtype=torch.float32, device=grad.device)
+        acc.index_add_(0, torch.where(flat == pad, sink, flat), grad.reshape(-1, c).float())
+        acc[pad] = 0.0
+        return acc[:rows].to(ctx.table_dtype), None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows of a ``padded_table`` of N = ``n`` rows a scene: idx [B, *S] in
+    [0, n], where n is the zero row (a rulebook's pad slot) -> [B, *S, C].
+
+    The same values as ``gather_rows(pad_row(x), idx)``. Its backward adds
+    each read's gradient into its row (in float32) and none into the zero
+    row: the pad slot is read by most of a sparse conv's 27 offsets, and
+    both advanced indexing's and F.embedding's backward sum such a heavily
+    repeated row a segment at a time on one thread."""
+    b = idx.shape[0]
+    offsets = (torch.arange(b, device=idx.device) * n).view((b,) + (1,) * (idx.ndim - 1))
+    pad = table.shape[0] - 1
+    return _TakeRows.apply(table, torch.where(idx >= n, pad, idx + offsets))

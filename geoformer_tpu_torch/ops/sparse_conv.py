@@ -6,6 +6,13 @@ layout; those equal the rulebook path while no brick overflows and are not
 ported: on the card the gather/GEMM/scatter-free rulebook form is the
 natural one. ``plan_stats`` reports ``n_brick_overflow`` as zeros.
 
+``compute_dtype=torch.bfloat16`` (the configs' ``tpu_compute_dtype: bfloat16``)
+narrows features before each gather and weights before each product, as
+the JAX module does; products accumulate and come out in float32, the JAX
+module's ``preferred_element_type``. A bf16 ``torch.matmul`` would round its
+output to bf16, so the narrowed operands are widened back to float32 (exact)
+for an f32 product instead (TF32 is off, ``set_fp32_precision``).
+
 Weight layouts (as in the JAX module):
   subm k3:  w[27, Cin, Cout], offset index = (dz+1)*9 + (dy+1)*3 + (dx+1)
   down/up:  w[8, Cin, Cout],  offset index = cz%2*4 + cy%2*2 + cx%2
@@ -18,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from geoformer_tpu_torch.ops import gather_rows, pad_row
+from geoformer_tpu_torch.ops import gather_rows, padded_table, take_rows
 from geoformer_tpu_torch.ops.voxelize import VoxelGrid, pack_key, voxelize
 
 SUBM_OFFSETS = np.array(
@@ -76,19 +83,33 @@ def build_downsample(grid: VoxelGrid, spatial: int, num_parent_voxels: int) -> D
                     parent_grid=pgrid)
 
 
-def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Submanifold conv. feats [B,V,Cin], nbr [B,V,K], w [K,Cin,Cout].
+def _narrow(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    return x if compute_dtype is None else x.to(compute_dtype)
+
+
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b accumulated and returned in float32, whatever the operands'
+    dtype (bf16 values widen to f32 exactly)."""
+    return a.float() @ b.float()
+
+
+def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+              compute_dtype=None) -> torch.Tensor:
+    """Submanifold conv. feats [B,V,Cin], nbr [B,V,K], w [K,Cin,Cout] ->
+    [B,V,Cout] float32.
 
     Offsets go in chunks of 128 // Cin (as in the JAX module) so the gathered
     buffer stays bounded; missing neighbors read the explicit zero row V."""
     k, cin, cout = w.shape
-    fpad = pad_row(feats)
+    v = feats.shape[1]
+    table = padded_table(_narrow(feats, compute_dtype))
+    w = _narrow(w, compute_dtype)
     chunk = max(1, 128 // max(cin, 1))
     out = None
     for s in range(0, k, chunk):
         e = min(s + chunk, k)
-        g = gather_rows(fpad, nbr[:, :, s:e])  # [B,V,c,Cin]
-        part = g.reshape(g.shape[0], g.shape[1], -1) @ w[s:e].reshape(-1, cout)
+        g = take_rows(table, nbr[:, :, s:e], v)  # [B,V,c,Cin]
+        part = _f32_product(g.reshape(g.shape[0], g.shape[1], -1), w[s:e].reshape(-1, cout))
         out = part if out is None else out + part
     return out
 
@@ -98,26 +119,32 @@ def dense_1x1(feats: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return feats @ w
 
 
-def _offset_gemm(feats: torch.Tensor, offset_idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """out[v] = feats[v] @ w[offset_idx[v]] via 8 masked GEMMs."""
-    out = feats.new_zeros(feats.shape[:-1] + (w.shape[-1],))
+def _offset_gemm(feats: torch.Tensor, offset_idx: torch.Tensor, w: torch.Tensor,
+                 compute_dtype=None) -> torch.Tensor:
+    """out[v] = feats[v] @ w[offset_idx[v]] via 8 masked GEMMs (float32 out)."""
+    feats, w = _narrow(feats, compute_dtype), _narrow(w, compute_dtype)
+    out = torch.zeros(feats.shape[:-1] + (w.shape[-1],), dtype=torch.float32,
+                      device=feats.device)
     for k in range(w.shape[0]):
-        sel = (offset_idx == k).to(feats.dtype)[..., None]
-        out = out + sel * (feats @ w[k])
+        sel = (offset_idx == k).to(torch.float32)[..., None]
+        out = out + sel * _f32_product(feats, w[k])
     return out
 
 
-def down_conv(feats: torch.Tensor, link: DownLink, w: torch.Tensor) -> torch.Tensor:
+def down_conv(feats: torch.Tensor, link: DownLink, w: torch.Tensor,
+              compute_dtype=None) -> torch.Tensor:
     """Strided k=2 s=2 conv: child feats [B,Vc,Cin] -> parent [B,Vp,Cout],
     reduced over the <=8-slot children rulebook (pad children read zeros)."""
-    transformed = pad_row(_offset_gemm(feats, link.offset_idx, w))
-    return gather_rows(transformed, link.children).sum(dim=2)
+    transformed = _offset_gemm(feats, link.offset_idx, w, compute_dtype)
+    return take_rows(padded_table(transformed), link.children, feats.shape[1]).sum(dim=2)
 
 
-def up_conv(parent_feats: torch.Tensor, link: DownLink, w: torch.Tensor) -> torch.Tensor:
+def up_conv(parent_feats: torch.Tensor, link: DownLink, w: torch.Tensor,
+            compute_dtype=None) -> torch.Tensor:
     """Inverse k=2 conv: parent feats [B,Vp,Cin] -> child [B,Vc,Cout]."""
-    gathered = gather_rows(pad_row(parent_feats), link.parent)
-    return _offset_gemm(gathered, link.offset_idx, w)
+    gathered = take_rows(padded_table(_narrow(parent_feats, compute_dtype)), link.parent,
+                         parent_feats.shape[1])
+    return _offset_gemm(gathered, link.offset_idx, w, compute_dtype)
 
 
 class GridPlan(NamedTuple):

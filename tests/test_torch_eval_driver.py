@@ -304,8 +304,10 @@ def test_driver_options(forward):
     assert cfg.exp_name == "port_test" and cfg.m == 4
     with pytest.raises(ValueError):
         cli_test.main(forward["argv"][:2] + ["--device", "cpu"])  # no checkpoint
+    # training scenes and batches are ported (held against the JAX package
+    # in tests/test_torch_losses.py)
     ds = InstDataset(cfg, "val")
-    with pytest.raises(NotImplementedError):
-        next(iter(ds.train_batches(1)))
-    with pytest.raises(NotImplementedError):
-        ds.build_scene(0, np.random.default_rng(0), True)
+    batch = next(iter(ds.train_batches(1)))
+    assert batch["points"].shape == (1, cfg.tpu_max_points, 3)
+    scene = ds.build_scene(0, np.random.default_rng(0), True)
+    assert scene["coords"].dtype == np.int32 and 0 < len(scene["points"]) <= cfg.max_npoint

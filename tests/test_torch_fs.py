@@ -303,8 +303,10 @@ def test_driver_runs_both_support_modes(setup, fix_support):
         assert all(len(set(r["proposals_per_run"])) == 1 for r in summary["scenes"])
     avgs = summary["avgs"]
     assert all(np.isfinite(avgs[k]) for k in ("all_ap", "all_ap_50%", "all_ap_25%", "all_ap_std"))
-    with pytest.raises(NotImplementedError):
-        next(iter(setup["ds"].train_batches(1)))
+    # training episodes are ported (held against the JAX package in
+    # tests/test_torch_losses.py)
+    support, query, infos = next(iter(setup["ds"].train_batches(1)))
+    assert query["points"].shape[0] == support["points"].shape[0] == len(infos) == 1
 
 
 def test_driver_matches_jax_protocol(setup):

@@ -1,7 +1,7 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package.
 
 Every module of geoformer_tpu_torch (its ``cli``, ``data``, ``evaluation``,
-``tools`` and ``utils`` subpackages included) and chip_smoke (whose work runs
+``losses``, ``parallel``, ``tools`` and ``utils`` subpackages included) and chip_smoke (whose work runs
 only under ``if __name__ == "__main__":``) is imported in a fresh
 interpreter, which then lists what it loaded. The port's entry points run on
 the card: without one, and without a device named, they raise.
@@ -58,7 +58,14 @@ def test_port_and_chip_smoke_import_no_jax():
                 "geoformer_tpu_torch.data.scannet", "geoformer_tpu_torch.data.episodic",
                 "geoformer_tpu_torch.evaluation.gt", "geoformer_tpu_torch.evaluation.predictions",
                 "geoformer_tpu_torch.evaluation.scannet_eval",
-                "geoformer_tpu_torch.tools.gather_probe", "geoformer_tpu_torch.utils.logger"}
+                "geoformer_tpu_torch.tools.gather_probe", "geoformer_tpu_torch.utils.logger",
+                "geoformer_tpu_torch.cli.train", "geoformer_tpu_torch.cli.train_fs",
+                "geoformer_tpu_torch.losses.matcher", "geoformer_tpu_torch.losses.criterion",
+                "geoformer_tpu_torch.losses.criterion_fs",
+                "geoformer_tpu_torch.parallel.dist", "geoformer_tpu_torch.parallel.train_state",
+                "geoformer_tpu_torch.utils.checkpoint", "geoformer_tpu_torch.utils.meters",
+                "geoformer_tpu_torch.utils.prefetch", "geoformer_tpu_torch.utils.scheduler",
+                "geoformer_tpu_torch.utils.tracking"}
     assert expected <= set(res["modules"])
 
 
@@ -78,7 +85,8 @@ def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
         assert '"ok": true' not in proc.stdout
 
 
-@pytest.mark.parametrize("module", ["cli.test", "cli.test_fs", "tools.gather_probe"])
+@pytest.mark.parametrize("module", ["cli.test", "cli.test_fs", "cli.train", "cli.train_fs",
+                                    "tools.gather_probe"])
 def test_entry_points_raise_without_a_card(module):
     """No --device and no CUDA: the drivers and the probe raise before they
     touch a file; they never move to the CPU on their own."""

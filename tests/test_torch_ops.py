@@ -24,7 +24,7 @@ from geoformer_tpu.ops.ball_query import ball_query as jax_ball_query
 from geoformer_tpu.ops.geodesic import geodesic_distance_hier as jax_geo_hier
 import geoformer_tpu_torch.ops.sparse_conv as tsc
 import geoformer_tpu_torch.ops.voxelize as tvox
-from geoformer_tpu_torch.models.blocks import _chunked_attention
+from geoformer_tpu_torch.models.blocks import _sdpa_attention
 from geoformer_tpu_torch.models.geoformer import pack_by_mask, strided_pack_by_mask
 from geoformer_tpu_torch.ops.ball_query import ball_query
 from geoformer_tpu_torch.ops.geodesic import geodesic_distance_hier
@@ -161,5 +161,5 @@ def test_chunked_attention_matches_jax():
     q, k, v = (rng.normal(size=(2, 1100, 4, 8)).astype(np.float32) for _ in range(3))
     mask = rng.random((2, 1100)) < 0.7
     want = jax_chunked_attention(*map(jnp.asarray, (q, k, v, mask)))
-    got = _chunked_attention(*map(_t, (q, k, v, mask)))
+    got = _sdpa_attention(*map(_t, (q, k, v, mask)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)

@@ -22,7 +22,8 @@ loss (``semantic_only`` stops the forward after the semantic head, and
 nothing after it reaches the CE), plus the BN statistics after the forward.
 The port runs ``Engine.train_step``; its gradients are read as the step
 applies them. The frozen-module config (the backbone frozen) runs its own
-prepare-phase program. (Compiled with ``xla_backend_optimization_level=0``,
+prepare-phase program, in tests/test_torch_train_fs.py with the other
+frozen-module step. (Compiled with ``xla_backend_optimization_level=0``,
 as the eval-forward tests compile theirs, the same program's gradient of the
 set aggregator and of everything upstream of it differs from the default
 build's, which the port and the un-jitted program agree with; see
@@ -203,15 +204,22 @@ def assert_stats(model, jax_stats, only=None):
 
 
 @pytest.fixture(scope="module")
-def supervised(tiny_cfg):
+def supervised_inputs(tiny_cfg):
+    """Config, batch and seeded weights (as a state_dict and as the JAX
+    variable tree) of the supervised steps."""
     cfg = tiny_cfg.replace(tpu_unet_depth=2, tpu_brick_occupancy=0, dec_dropout=0.0,
                            prepare_epochs=1)
-    nb = train_batch(cfg)
     pcfg = port_config(cfg, tpu_remat=True)
     model = gf.GeoFormer(gf.ModelConfig.from_cfg(pcfg))
     sd = perturbed_weights(model)
     model.load_state_dict(sd)
-    variables = to_jax_variables(model)
+    return dict(cfg=cfg, pcfg=pcfg, nb=train_batch(cfg), sd=sd,
+                variables=to_jax_variables(model))
+
+
+@pytest.fixture(scope="module")
+def supervised(supervised_inputs):
+    cfg, variables, nb = (supervised_inputs[k] for k in ("cfg", "variables", "nb"))
     jm = JaxGeoFormer(JaxModelConfig.from_cfg(cfg))
     crit = JaxInstSetCriterion(cfg)
     rngs = {"sample": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)}
@@ -232,7 +240,7 @@ def supervised(tiny_cfg):
         jb = {k: jnp.asarray(v) for k, v in nb.items()}
         ref = jax.tree_util.tree_map(np.asarray, jit_default(
             step, variables["params"], variables["batch_stats"], variables["constants"], jb))
-    return dict(cfg=cfg, pcfg=pcfg, nb=nb, sd=sd, variables=variables, ref=ref)
+    return dict(supervised_inputs, ref=ref)
 
 
 @pytest.fixture
@@ -272,43 +280,6 @@ def test_prepare_phase_step(supervised, port_packs):
         if k.rsplit(".", 1)[-1] in ("mean", "var") and k.split(".")[0] not in ("backbone",
                                                                                "semantic"):
             assert torch.equal(v, before[k]), k
-
-
-def test_frozen_backbone_prepare_step(supervised):
-    """fix_module freezes the backbone: it runs in eval mode (running
-    statistics, left as they were), its output is detached, its parameters
-    take no gradient and no optimizer state; the semantic head trains."""
-    cfg = supervised["cfg"].replace(fix_module=["input_conv", "unet", "output_layer"])
-    jm = JaxGeoFormer(JaxModelConfig.from_cfg(cfg))
-    crit = JaxInstSetCriterion(cfg)
-    v = supervised["variables"]
-
-    def step(params, stats, consts, batch):
-        def f(p):
-            out, mut = jm.apply({"params": p, "batch_stats": stats, "constants": consts}, batch,
-                                train=True, semantic_only=True, mutable=["batch_stats"])
-            loss, _ = crit(out, batch, 0)
-            return loss, mut["batch_stats"]
-
-        return jax.value_and_grad(f, has_aux=True)(params)
-
-    with pytest.MonkeyPatch.context() as mp:
-        injected(mp)
-        (loss, stats), grads = jax.tree_util.tree_map(np.asarray, jit_default(
-            step, v["params"], v["batch_stats"], v["constants"],
-            {k: jnp.asarray(a) for k, a in supervised["nb"].items()}))
-    engine = Engine(port_config(cfg), device="cpu", state_dict=supervised["sd"])
-    got_loss, _, got = port_step(engine, supervised["nb"], epoch=1)
-    assert "backbone" in engine.state.frozen
-    assert all(not p.requires_grad for p in engine.model.backbone.parameters())
-    assert not any(engine.state.optimizer.state[p] for p in engine.model.backbone.parameters())
-    assert_close(got_loss, loss, TOL, "loss")
-    frozen = [k for k in from_jax_variables({"params": grads}) if k.startswith("backbone.")]
-    assert_grads(got, grads, frozen)
-    assert_stats(engine.model, stats)
-    for k, t in engine.model.backbone.state_dict().items():
-        if k.rsplit(".", 1)[-1] in ("mean", "var"):
-            assert torch.equal(t, supervised["sd"][f"backbone.{k}"]), k
 
 
 @pytest.mark.cuda

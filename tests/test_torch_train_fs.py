@@ -1,4 +1,6 @@
-"""One few-shot training step of the port vs the JAX package on the CPU.
+"""Training steps with frozen modules, the port vs the JAX package on the
+CPU: one few-shot step, and one supervised prepare step with the backbone
+frozen (on tests/test_torch_train.py's inputs).
 
 The published few-shot config's frozen modules (config/geoformer_fs_scannet.yaml
 fix_module: the backbone, the semantic head, the set aggregator, the
@@ -9,7 +11,8 @@ once: the few-shot criterion's loss (dice, focal and the similarity loss),
 its gradients and the BN statistics after the forward; the port runs
 ``Engine.train_step`` with the support batch.
 
-Tolerances: the loss, each loss term and every gradient leaf within
+The frozen backbone's step is a prepare-phase (``semantic_only``) program
+of its own. Tolerances: the loss, each loss term and every gradient leaf within
 1e-4 x max(1, |ref|inf); a frozen module's JAX gradient exactly 0 (its port
 parameters take none); BN running statistics within 1e-5, the frozen
 modules' left exactly as they were.
@@ -22,6 +25,8 @@ import jax
 import jax.numpy as jnp
 
 from geoformer_tpu.losses import FSInstSetCriterion as JaxFSInstSetCriterion
+from geoformer_tpu.losses import InstSetCriterion as JaxInstSetCriterion
+from geoformer_tpu.models.geoformer import GeoFormer as JaxGeoFormer
 from geoformer_tpu.models.geoformer import ModelConfig as JaxModelConfig
 from geoformer_tpu.models.geoformer_fs import GeoFormerFS as JaxGeoFormerFS
 from geoformer_tpu_torch.engine import Engine
@@ -38,6 +43,7 @@ from test_torch_train import (
     port_config,
     port_pack,
     port_step,
+    supervised_inputs,
     train_batch,
     TOL,
 )
@@ -114,3 +120,40 @@ def test_few_shot_step(few_shot, monkeypatch):
     for k, v in engine.model.state_dict().items():
         if k.rsplit(".", 1)[-1] in ("mean", "var") and k.split(".")[0] not in trainable:
             assert torch.equal(v, few_shot["sd"][k]), k
+
+
+def test_frozen_backbone_prepare_step(supervised_inputs):
+    """fix_module freezes the backbone: it runs in eval mode (running
+    statistics, left as they were), its output is detached, its parameters
+    take no gradient and no optimizer state; the semantic head trains."""
+    cfg = supervised_inputs["cfg"].replace(fix_module=["input_conv", "unet", "output_layer"])
+    jm = JaxGeoFormer(JaxModelConfig.from_cfg(cfg))
+    crit = JaxInstSetCriterion(cfg)
+    v = supervised_inputs["variables"]
+
+    def step(params, stats, consts, batch):
+        def f(p):
+            out, mut = jm.apply({"params": p, "batch_stats": stats, "constants": consts}, batch,
+                                train=True, semantic_only=True, mutable=["batch_stats"])
+            loss, _ = crit(out, batch, 0)
+            return loss, mut["batch_stats"]
+
+        return jax.value_and_grad(f, has_aux=True)(params)
+
+    with pytest.MonkeyPatch.context() as mp:
+        injected(mp)
+        (loss, stats), grads = jax.tree_util.tree_map(np.asarray, jit_default(
+            step, v["params"], v["batch_stats"], v["constants"],
+            {k: jnp.asarray(a) for k, a in supervised_inputs["nb"].items()}))
+    engine = Engine(port_config(cfg), device="cpu", state_dict=supervised_inputs["sd"])
+    got_loss, _, got = port_step(engine, supervised_inputs["nb"], epoch=1)
+    assert "backbone" in engine.state.frozen
+    assert all(not p.requires_grad for p in engine.model.backbone.parameters())
+    assert not any(engine.state.optimizer.state[p] for p in engine.model.backbone.parameters())
+    assert_close(got_loss, loss, TOL, "loss")
+    frozen = [k for k in from_jax_variables({"params": grads}) if k.startswith("backbone.")]
+    assert_grads(got, grads, frozen)
+    assert_stats(engine.model, stats)
+    for k, t in engine.model.backbone.state_dict().items():
+        if k.rsplit(".", 1)[-1] in ("mean", "var"):
+            assert torch.equal(t, supervised_inputs["sd"][f"backbone.{k}"]), k

@@ -33,6 +33,7 @@ def build_gt_instances(inst_labels_fg, sem_labels_fg, fg_valid, max_inst: int):
 def dice_cost(mask_logits, inst_masks, fg_valid):
     """[B,Q,F] x [B,I,F] -> [B,Q,I] dice cost."""
     probs = torch.sigmoid(mask_logits) * fg_valid[:, None, :]
+    inst_masks = inst_masks.to(probs.dtype)
     num = 2.0 * torch.einsum("bqf,bif->bqi", probs, inst_masks)
     den = probs.sum(-1)[:, :, None] + inst_masks.sum(-1)[:, None, :]
     return 1.0 - (num + 1.0) / (den + 1.0)

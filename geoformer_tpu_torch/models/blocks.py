@@ -136,7 +136,7 @@ def _sdpa_attention(q, k, v, mask):
     slots). q,k,v [B,N,H,D], mask [B,N] (key validity) -> [B,N,H,D]. Masked
     keys take a bias of the dtype's minimum, so a row with no valid key
     stays finite."""
-    bias = torch.where(mask, 0.0, torch.finfo(q.dtype).min).to(q.dtype)
+    bias = q.new_zeros(mask.shape).masked_fill(~mask, torch.finfo(q.dtype).min)
     bias = bias[:, None, None, :].expand(-1, q.shape[2], q.shape[1], -1)
     out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                          attn_mask=bias)

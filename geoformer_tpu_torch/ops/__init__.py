@@ -52,21 +52,24 @@ class _TakeRows(torch.autograd.Function):
         flat = flat.reshape(-1)
         pad = rows - 1
         sink = rows + torch.arange(flat.numel(), device=flat.device) % _TakeRows.SINKS
-        acc = torch.zeros(rows + _TakeRows.SINKS, c, dtype=torch.float32, device=grad.device)
-        acc.index_add_(0, torch.where(flat == pad, sink, flat), grad.reshape(-1, c).float())
+        acc = torch.zeros(rows + _TakeRows.SINKS, c, device=grad.device,
+                          dtype=torch.promote_types(grad.dtype, torch.float32))
+        acc.index_add_(0, torch.where(flat == pad, sink, flat), grad.reshape(-1, c).to(acc.dtype))
         acc[pad] = 0.0
         return acc[:rows].to(ctx.table_dtype), None
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """Rows of a ``padded_table`` of N = ``n`` rows a scene: idx [B, *S] in
-    [0, n], where n is the zero row (a rulebook's pad slot) -> [B, *S, C].
+    [0, n], where n is the zero row (a pad slot) -> [B, *S, C].
 
-    The same values as ``gather_rows(pad_row(x), idx)``. Its backward adds
-    each read's gradient into its row (in float32) and none into the zero
-    row: the pad slot is read by most of a sparse conv's 27 offsets, and
-    both advanced indexing's and F.embedding's backward sum such a heavily
-    repeated row a segment at a time on one thread."""
+    The port's one gather through pad slots: the sparse convs' rulebooks
+    and ``devoxelize`` read through it. Its backward adds each read's
+    gradient into its row (in float32, or float64 for a float64 table) and
+    none into the zero row: the pad slot is read by most of a sparse conv's
+    27 offsets and by every invalid point of a scene smaller than the
+    capacity, and both advanced indexing's and F.embedding's backward sum
+    such a heavily repeated row a segment at a time on one thread."""
     b = idx.shape[0]
     offsets = (torch.arange(b, device=idx.device) * n).view((b,) + (1,) * (idx.ndim - 1))
     pad = table.shape[0] - 1

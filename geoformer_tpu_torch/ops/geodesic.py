@@ -229,7 +229,7 @@ def _hier_scene(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, positio
     # coarse solve over the occupied slot prefix
     cblock = min(block_size, max(c_cap // 8, 8))
     cpp = c_cap + ((-c_cap) % cblock)
-    cdist = torch.full((cpp + 1, q), INF, device=dev)
+    cdist = torch.full((cpp + 1, q), INF, dtype=to_rep.dtype, device=dev)
     seed_cols = torch.arange(q, device=dev)
     safe = seeds.clamp(0, p - 1)
     seed_cell = torch.where(seed_mask, p2c[safe], cpp)
@@ -256,7 +256,7 @@ def _hier_scene(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, positio
     d0 = F.pad(d0, (0, 0, 0, pp - p + 1), value=INF)
     safe_seeds = torch.where(seed_mask, inv[safe], pp)
     d0[safe_seeds, seed_cols] = torch.minimum(d0[safe_seeds, seed_cols],
-                                              torch.zeros((), device=dev))
+                                              d0.new_zeros(()))
     dist, fine_iters = _block_sweeps(nb2, w2, d0, fine_sweeps, block_size)
 
     dist = dist[inv]

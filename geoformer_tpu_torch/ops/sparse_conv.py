@@ -87,10 +87,15 @@ def _narrow(x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return x if compute_dtype is None else x.to(compute_dtype)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 (bf16 values widen exactly), or float64 if it is that."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b accumulated and returned in float32, whatever the operands'
-    dtype (bf16 values widen to f32 exactly)."""
-    return a.float() @ b.float()
+    """a @ b accumulated and returned in float32 (float64 for float64
+    operands), whatever the operands' dtype."""
+    return _wide(a) @ _wide(b)
 
 
 def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
@@ -123,10 +128,10 @@ def _offset_gemm(feats: torch.Tensor, offset_idx: torch.Tensor, w: torch.Tensor,
                  compute_dtype=None) -> torch.Tensor:
     """out[v] = feats[v] @ w[offset_idx[v]] via 8 masked GEMMs (float32 out)."""
     feats, w = _narrow(feats, compute_dtype), _narrow(w, compute_dtype)
-    out = torch.zeros(feats.shape[:-1] + (w.shape[-1],), dtype=torch.float32,
+    out = torch.zeros(feats.shape[:-1] + (w.shape[-1],), dtype=_wide(feats).dtype,
                       device=feats.device)
     for k in range(w.shape[0]):
-        sel = (offset_idx == k).to(torch.float32)[..., None]
+        sel = (offset_idx == k).to(out.dtype)[..., None]
         out = out + sel * _f32_product(feats, w[k])
     return out
 

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from geoformer_tpu_torch.ops import gather_rows, pad_row
+from geoformer_tpu_torch.ops import gather_rows, padded_table, take_rows
 
 
 class VoxelGrid(NamedTuple):
@@ -115,6 +115,6 @@ def voxel_mean_pool(feats: torch.Tensor, grid: VoxelGrid) -> torch.Tensor:
 
 
 def devoxelize(voxel_feats: torch.Tensor, grid: VoxelGrid) -> torch.Tensor:
-    """Gather voxel features back to points: [B,V,C] -> [B,P,C] (pad slot V
-    reads an explicit zero row)."""
-    return gather_rows(pad_row(voxel_feats), grid.p2v)
+    """Gather voxel features back to points: [B,V,C] -> [B,P,C] (pad slot V,
+    an invalid point's, reads the zero row)."""
+    return take_rows(padded_table(voxel_feats), grid.p2v, voxel_feats.shape[1])

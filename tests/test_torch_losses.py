@@ -434,8 +434,8 @@ def test_subm_conv_bf16_matches_jax():
 
 
 def test_subm_conv_gradients_match_jax():
-    """The sparse conv's backward through take_rows (F.embedding's segment
-    sums, nothing into the pad row) against JAX's gather transpose."""
+    """The sparse conv's backward through take_rows (an index_add_,
+    nothing into the pad row) against JAX's gather transpose."""
     rng = np.random.default_rng(9)
     b, v, cin, cout = 2, 200, 8, 12
     feats = rng.normal(0, 1, (b, v, cin)).astype(np.float32)

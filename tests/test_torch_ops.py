@@ -66,6 +66,32 @@ def test_voxelize_matches_jax(num_voxels):
                                atol=1e-6, rtol=0)
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_devoxelize_gradient_matches_jax(dtype):
+    """devoxelize on scenes below capacity (a fifth of the point slots
+    masked, each reading the pad slot): the gradient into the voxel
+    features equals the transpose of JAX's gather (to 1e-6), and none
+    reaches the pad row; float64 features keep float64 values and
+    gradients."""
+    c, mask = _coords(3)
+    mask[:, -60:] = False
+    grid = tvox.voxelize(_t(c), _t(mask), 512, 32)
+    jgrid = jax.jit(jax_voxelize, static_argnums=(2, 3))(jnp.asarray(c), jnp.asarray(mask),
+                                                         512, 32)
+    assert int((grid.p2v == 512).sum()) >= 120
+    rng = np.random.default_rng(4)
+    vf = rng.normal(size=(2, 512, 6)).astype(np.float32)
+    probe = rng.normal(size=(2, 300, 6)).astype(np.float32)
+    want = jax.grad(lambda v: jnp.sum(jax_devoxelize(v, jgrid) * probe))(jnp.asarray(vf))
+    tv = _t(vf).to(dtype).requires_grad_(True)
+    out = tvox.devoxelize(tv, grid)
+    assert out.dtype == dtype
+    np.testing.assert_array_equal(out.detach().float().numpy()[~mask], 0.0)
+    (out * _t(probe).to(dtype)).sum().backward()
+    assert tv.grad.dtype == dtype
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
 def test_sparse_conv_plan_and_convs_match_jax():
     """Rulebooks exactly equal; subm/down/up convs to 1e-5."""
     c, mask = _coords(3, spatial=32)

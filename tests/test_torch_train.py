@@ -284,8 +284,10 @@ def test_prepare_phase_step(supervised, port_packs):
 
 @pytest.mark.cuda
 def test_card_step_matches_cpu():
-    """chip_smoke.py's train_small_reference: one full-phase step on the
-    card and on the CPU, same weights, batch and draws."""
+    """chip_smoke.py's train_small_reference: one full-phase step at the
+    published U-Net depth on the card and on the CPU, same weights, batch
+    and draws, in float64 (within 1e-9) and in float32 (against the float64
+    step, module by module no further than 8x the CPU's own error)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import chip_smoke

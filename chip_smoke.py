@@ -65,7 +65,20 @@ directory that lacks the port's package. It
    no further from the float64 step than the CPU, leaf by leaf (see
    there); K1's and K2's card outputs equal to their plain versions' on the
    CPU run's inputs;
-11. prints a ``kernels`` line with each kernel's launches on its paths (K2's
+11. data parallelism, with ranks that are processes of this script
+   (``--rank-task``) started as torchrun starts them, on the one card over
+   ``gloo``; any rank's failure fails the run: ``ddp_reference`` (the step of
+   10 on two ranks, one scene a rank, against the one-process step on the
+   card: float64 within 1e-9, float32 against float64 as 10 holds it, the
+   ranks' models bit-equal after two steps), ``ddp_train`` (cli.train on
+   config/geoformer_scannet.yaml at two ranks and a global batch of 4, one
+   prepare and one full epoch of two steps: each rank's s/step, peak
+   memory, capacity counters, model digest and K1/K2 launches; then its
+   checkpoint through a one-process cli.test), ``ddp_eval`` (cli.test at two
+   ranks against one process: every scene's predictions and the AP table
+   equal) and, beside it, ``ddp_nccl`` (cli.train at a world of 1 under
+   nccl for one prepare step);
+12. prints a ``kernels`` line with each kernel's launches on its paths (K2's
    by shape: every counted run logs the shape of each K2 call, and a row's
    ``launches`` are those made at its shape), its times and its bound, the
    card's line, and last
@@ -314,11 +327,18 @@ def row_gather_row(torch, row_gather, row_gather_plain, x, idx, launches) -> dic
         wrapper_loop_ms=time_ms(torch, fns["ms"], 50))
 
 
+def write_yaml(path: str, cfg) -> str:
+    """``cfg`` as a driver's YAML config file at ``path``."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump({"ALL": {k: v for k, v in cfg.to_dict().items() if k != "config"}}, f)
+    return path
+
+
 def write_smoke_data(torch, cfg_mod, Engine, here) -> dict:
     """A synthetic dataset of full-size scenes, the two drivers' configs and
     two checkpoints of seeded random weights, under build/smoke_data."""
-    import yaml
-
     from geoformer_tpu_torch.synthetic import write_dataset
     from geoformer_tpu_torch.weights import save_jax_checkpoint
 
@@ -331,11 +351,8 @@ def write_smoke_data(torch, cfg_mod, Engine, here) -> dict:
             "test_fs": cfg_mod.scannet_fs_eval_config(run_num=2, **common)}
     paths = {}
     for name, cfg in cfgs.items():
-        values = {k: v for k, v in cfg.to_dict().items() if k != "config"}
-        paths[name] = {"config": os.path.join(root, f"{name}.yaml"),
+        paths[name] = {"config": write_yaml(os.path.join(root, f"{name}.yaml"), cfg),
                        "ckpt": os.path.join(root, f"{name}.ckpt")}
-        with open(paths[name]["config"], "w") as f:
-            yaml.safe_dump({"ALL": values}, f)
         engine = Engine(cfg, seed=0, few_shot=name == "test_fs")
         if name == "test_fs":
             # The few-shot config evaluates fold 1 with a backbone of fold 0:
@@ -562,8 +579,6 @@ def write_train_data(torch, cfg_mod, Engine, here, batch_size) -> dict:
     (the published YAMLs with only the TRAIN_CUTS / TRAIN_FS_CUTS epoch
     counts and the batch size changed) and the supervised pretrain
     checkpoint, under build/smoke_train."""
-    import yaml
-
     from geoformer_tpu_torch.synthetic import write_dataset
     from geoformer_tpu_torch.weights import save_jax_checkpoint
 
@@ -583,11 +598,8 @@ def write_train_data(torch, cfg_mod, Engine, here, batch_size) -> dict:
             os.path.join(here, "config", "geoformer_fs_scannet.yaml"),
             **common, **{k: v[1] for k, v in TRAIN_FS_CUTS.items()}),
     }
-    paths = {}
-    for name, cfg in cfgs.items():
-        paths[name] = os.path.join(root, f"{name}.yaml")
-        with open(paths[name], "w") as f:
-            yaml.safe_dump({"ALL": {k: v for k, v in cfg.to_dict().items() if k != "config"}}, f)
+    paths = {name: write_yaml(os.path.join(root, f"{name}.yaml"), cfg)
+             for name, cfg in cfgs.items()}
     engine = Engine(cfgs["train"], seed=0)
     with torch.no_grad():
         engine.model.semantic.Dense_2.bias[4] += FG_BIAS
@@ -598,12 +610,15 @@ def write_train_data(torch, cfg_mod, Engine, here, batch_size) -> dict:
     return {"cfgs": cfgs, "paths": paths, "root": root, "points": counts}
 
 
-def run_train_driver(torch, name, main, argv, counters, backbone_trains: bool) -> dict:
+def run_train_driver(torch, name, main, argv, counters, backbone_trains: bool,
+                     full_phase: bool = True) -> dict:
     """One training driver from its command line, counted: the kernels'
     launch counts set to 0 just before and read just after, the peak
     device memory over the run, and the TrainProbes. The residual blocks
     are rematerialized when the backbone trains (a frozen backbone runs in
-    eval mode, and the JAX model remats it then neither)."""
+    eval mode, and the JAX model remats it then neither). ``full_phase``:
+    the run must reach the full phase (and match gt instances there) and
+    launch K1 and K2, which the prepare phase does not run."""
     for fn in counters.values():
         fn.launches = 0
     fps_log = counters["fps"].capture = CallLog()
@@ -635,17 +650,18 @@ def run_train_driver(torch, name, main, argv, counters, backbone_trains: bool) -
            "matcher": {"calls": len(probes.matcher_ms), "ms": probes.matcher_ms,
                        "share_of_step_time": sum(probes.matcher_ms) / step_ms if step_ms else None},
            "remat_blocks": probes.remat_blocks, "bf16_conv_operands": probes.bf16_operands,
-           "launches": launches, "seconds": seconds, "checkpoint": summary["checkpoint"]}
+           "launches": launches, "seconds": seconds, "checkpoint": summary["checkpoint"],
+           "param_digest": summary["param_digest"]}
     if not steps:
         fail(f"{name}: no training step ran")
     if not all(math.isfinite(v) for st in steps for v in st["losses"].values()):
         fail(f"{name}: a loss is not finite")
     if any(counters_max.values()):
         fail(f"{name}: a capacity counter is not 0: {counters_max}")
-    if not full or not all(n and n > 0 for n in res["num_gt"]):
+    if full_phase and (not full or not all(n and n > 0 for n in res["num_gt"])):
         fail(f"{name}: a full-phase step matched no gt instance")
     for k in ("knn_select", "fps"):
-        if launches[k] <= 0:
+        if full_phase and launches[k] <= 0:
             fail(f"{name}: kernel {k} was not launched")
     if (probes.remat_blocks > 0) != backbone_trains or probes.bf16_operands <= 0:
         fail(f"{name}: remat ({probes.remat_blocks} blocks; the backbone trains: "
@@ -744,6 +760,52 @@ def grad_errors(got: dict, want: dict) -> dict:
             for k, g in want.items()}
 
 
+def small_train_inputs(torch, cfg_mod, synthetic_batch) -> dict:
+    """train_small_reference's config (a small size at the published U-Net
+    depth), its batch of two scenes (the second below capacity) and its
+    seeded weights (the foreground class biased on)."""
+    import geoformer_tpu_torch.models.geoformer as gf
+    from geoformer_tpu_torch.weights import random_state_dict
+
+    cfg = cfg_mod.load_config(
+        None, batch_size=2, m=8, dec_dim=32, dec_nhead=4, dec_ffn_dim=32, dec_nlayers=2,
+        dec_dropout=0.0, n_decode_point=128, n_query_points=32, n_downsampling=1024,
+        tpu_max_points=4096, tpu_max_voxels=4096, tpu_max_fg_points=2048,
+        tpu_train_subsample=1024, tpu_max_instances=16, tpu_knn_neighbors=16,
+        tpu_spatial_shape=256, tpu_unet_depth=SMALL_REF_DEPTH, tpu_ball_nsample=16,
+        prepare_epochs=0, tpu_remat=True)
+    batch = synthetic_batch(cfg, 2, seed=11)
+    batch["point_mask"][1, -SMALL_REF_INVALID:] = False  # a scene below capacity
+    model = gf.GeoFormer(gf.ModelConfig.from_cfg(cfg))
+    sd = random_state_dict(model, 3)
+    sd["semantic.Dense_2.bias"][4] += FG_BIAS
+    return {"cfg": cfg, "batch": batch, "sd": sd}
+
+
+def injected_pack(torch):
+    """random_pack_by_mask with seeded numpy draws, the same on every device:
+    a table for the global batch (one row a scene) of which a rank of a
+    data mesh keeps its rows, as draw_subsample does."""
+    import numpy as np
+
+    import geoformer_tpu_torch.models.geoformer as gf
+    from geoformer_tpu_torch.parallel.mesh import data_rows
+
+    def injected(mask, capacity, generator):
+        rng = np.random.default_rng(capacity)
+        b, p = mask.shape
+        total, first = data_rows(b)
+        rows = slice(first, first + b)
+        if capacity >= p:
+            n = mask.sum(1).clamp(min=1).cpu()
+            draws = torch.minimum((torch.from_numpy(rng.random(total)[rows]) * n).long(), n - 1)
+        else:
+            draws = torch.from_numpy(rng.random((total, p)).astype(np.float32)[rows])
+        return gf.pack_from_draws(mask, capacity, draws.to(mask.device))
+
+    return injected
+
+
 def train_small_reference(torch, cfg_mod, Engine, synthetic_batch) -> dict:
     """One full-phase training step at a small size and the published
     U-Net depth, on the card and on the CPU, in float32 and in float64:
@@ -761,39 +823,16 @@ def train_small_reference(torch, cfg_mod, Engine, synthetic_batch) -> dict:
     comparable: where the CPU's error happens to be small the card's can
     be tens of times larger. K1's and K2's float32 outputs on the card must
     equal their plain versions' outputs on the CPU run's inputs."""
-    import numpy as np
-
     import geoformer_tpu_torch.models.geoformer as gf
     from geoformer_tpu_torch.kernels.fps import fps, fps_plain
     from geoformer_tpu_torch.kernels.knn_select import (
         select_min_k_cand,
         select_min_k_cand_plain,
     )
-    from geoformer_tpu_torch.weights import random_state_dict
 
-    cfg = cfg_mod.load_config(
-        None, batch_size=2, m=8, dec_dim=32, dec_nhead=4, dec_ffn_dim=32, dec_nlayers=2,
-        dec_dropout=0.0, n_decode_point=128, n_query_points=32, n_downsampling=1024,
-        tpu_max_points=4096, tpu_max_voxels=4096, tpu_max_fg_points=2048,
-        tpu_train_subsample=1024, tpu_max_instances=16, tpu_knn_neighbors=16,
-        tpu_spatial_shape=256, tpu_unet_depth=SMALL_REF_DEPTH, tpu_ball_nsample=16,
-        prepare_epochs=0, tpu_remat=True)
-    batch = synthetic_batch(cfg, 2, seed=11)
-    batch["point_mask"][1, -SMALL_REF_INVALID:] = False  # a scene below capacity
-    model = gf.GeoFormer(gf.ModelConfig.from_cfg(cfg))
-    sd = random_state_dict(model, 3)
-    sd["semantic.Dense_2.bias"][4] += FG_BIAS
-    real_pack = gf.random_pack_by_mask
-
-    def injected(mask, capacity, generator):
-        rng = np.random.default_rng(capacity)
-        b, p = mask.shape
-        if capacity >= p:
-            n = mask.sum(1).clamp(min=1).cpu()
-            draws = torch.minimum((torch.from_numpy(rng.random(b)) * n).long(), n - 1)
-        else:
-            draws = torch.from_numpy(rng.random((b, p)).astype(np.float32))
-        return gf.pack_from_draws(mask, capacity, draws.to(mask.device))
+    inputs = small_train_inputs(torch, cfg_mod, synthetic_batch)
+    cfg, batch, sd = inputs["cfg"], inputs["batch"], inputs["sd"]
+    real_pack, injected = gf.random_pack_by_mask, injected_pack(torch)
 
     runs = {}
     gf.random_pack_by_mask = injected
@@ -943,12 +982,442 @@ def train_paths(torch, cfg_mod, Engine, here, batch_size, counters, smoke) -> di
         row["path"] = "train" if row["shape"][1] == cfgs["train"].n_downsampling else "train_fs"
         if row["shape"][0] < 2 or row["launches"] <= 0:
             fail(f"fps at a training shape {row['shape']}: batch < 2 or no launch")
-    return {"by_path": by_path, "k1": k1, "k2": k2}
+    return {"by_path": by_path, "k1": k1, "k2": k2, "data": data}
+
+
+# ---------------- data parallelism ----------------
+
+# ranks of the data-parallel phases, on the one card over gloo (NCCL refuses
+# two ranks on one GPU)
+DDP_WORLD = 2
+# ddp_train's global batch (two scenes a rank) and its cuts of the published
+# config: one prepare and one full epoch of two steps each
+DDP_TRAIN_BATCH = 4
+DDP_TRAIN_CUTS = {"prepare_epochs": [120, 1], "epochs": [500, 2], "start_epoch": [0, 1]}
+# ddp_eval's test_batch_size: two scenes a forward, one a rank
+DDP_EVAL_GROUP = 2
+# a rank group that outlives this fails its phase
+DDP_TIMEOUT_S = 420
+
+
+def start_ranks(here, task: str, work: str, world: int = DDP_WORLD):
+    """``world`` processes of this script in its ``--rank-task`` mode, with
+    torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT); ``wait()`` raises if any rank fails or the group
+    outlives DDP_TIMEOUT_S, and stops every rank."""
+    from geoformer_tpu_torch.parallel.launch import Ranks
+
+    env = dict(os.environ, PYTHONPATH=here)
+    return Ranks([sys.executable, os.path.join(here, "chip_smoke.py"), "--rank-task", task,
+                  "--work", work], world, DDP_TIMEOUT_S, log_dir=work, env=env, cwd=here)
+
+
+def fresh_dir(path: str) -> str:
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=None) -> dict:
+    """``steps`` full-phase Engine.train_steps of train_small_reference's
+    inputs at ``dtype`` on the card (on this rank's rows under ``mesh``),
+    with its injected draws and no dropout: the first step's loss, matched
+    instances, Hungarian matches, applied (reduced) gradients and BN
+    statistics after it, and a digest of the model after the last step.
+    ``matches`` (this process's rows) replace the first step's own, which
+    are still reported: a float32 run takes float64's, so that a near-tie
+    that the auction breaks the other way in float32 does not stand in for
+    rounding. At float64 K1 and K2 pick through their plain versions (the
+    kernels take float32)."""
+    import numpy as np
+
+    import geoformer_tpu_torch.models.geoformer as gf
+    import geoformer_tpu_torch.ops.fps as ops_fps
+    import geoformer_tpu_torch.ops.radius_graph as ops_rg
+    from geoformer_tpu_torch.cli.train import state_digest
+    from geoformer_tpu_torch.kernels.fps import fps, fps_plain
+    from geoformer_tpu_torch.kernels.knn_select import (
+        select_min_k_cand,
+        select_min_k_cand_plain,
+    )
+    from geoformer_tpu_torch.models.unet import BottleneckTransformer
+
+    engine = Engine(inputs["cfg"], device="cuda", state_dict=inputs["sd"], mesh=mesh)
+    state = engine.init_state()
+    engine.model.to(dtype)
+    for mod in engine.model.modules():
+        if isinstance(mod, BottleneckTransformer):
+            mod.dropout = 0.0
+    batch = {k: v.astype(np.float64) if dtype == torch.float64 and v.dtype == np.float32 else v
+             for k, v in inputs["batch"].items()}
+    first = {}
+    optimizer_step = state.optimizer.step
+
+    def reading(*a, **kw):
+        if "grads" not in first:
+            first["grads"] = {k: p.grad.detach().cpu().double() for k, p in state.params.items()}
+        return optimizer_step(*a, **kw)
+
+    state.optimizer.step = reading
+    assign = engine.criterion._assign
+
+    def keeping(cost, valid):
+        out = assign(cost, valid)
+        if "matches" not in first:
+            first["matches"] = out.cpu()
+            if matches is not None:
+                return matches.to(out.device)
+        return out
+
+    engine.criterion._assign = keeping
+    real_pack = gf.random_pack_by_mask
+    gf.random_pack_by_mask = injected_pack(torch)
+    if dtype == torch.float64:
+        ops_rg.select_min_k_cand, ops_fps.fps = select_min_k_cand_plain, fps_plain
+    try:
+        gen = torch.Generator(device=engine.device).manual_seed(0)
+        for i in range(steps):
+            loss, ld, _ = engine.train_step(batch, 1, gen)
+            if i == 0:
+                first.update(loss=float(loss), num_gt=float(ld["num_gt"]),
+                             terms={k: float(v) for k, v in ld.items()}, stats={
+                    k: v.detach().cpu().double() for k, v in engine.model.state_dict().items()
+                    if k.rsplit(".", 1)[-1] in ("mean", "var")})
+    finally:
+        gf.random_pack_by_mask = real_pack
+        ops_rg.select_min_k_cand, ops_fps.fps = select_min_k_cand, fps
+    return dict(first, digest=state_digest(engine.model))
+
+
+def ddp_reference_rank(torch, work: str) -> None:
+    """A rank of ``ddp_reference``: both dtypes' steps under the mesh."""
+    from geoformer_tpu_torch.engine import Engine
+    from geoformer_tpu_torch.parallel.dist import process_group
+    from geoformer_tpu_torch.parallel.mesh import make_mesh
+
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    with process_group("gloo"):
+        mesh = make_mesh()
+        out = {"float64": ddp_steps(torch, Engine, inputs, torch.float64, mesh)}
+        out["float32"] = ddp_steps(torch, Engine, inputs, torch.float32, mesh,
+                                   matches=out["float64"]["matches"])
+        torch.save(dict(out, device=str(mesh.device)),
+                   os.path.join(work, f"rank{mesh.rank}.pt"))
+
+
+def ddp_reference(torch, cfg_mod, Engine, synthetic_batch, here) -> dict:
+    """train_small_reference's step (its config at the published U-Net
+    depth, B = 2, its weights and draws) on DDP_WORLD gloo ranks, one scene
+    a rank, against the one-process step on the card, twice a dtype. Float64:
+    the loss, every applied gradient and every BN statistic within
+    SMALL_REF_TOL64 x max(1, |ref|inf) of the one-process step's, the
+    matched instances equal. Float32: module by module no further from the
+    one-process float64 step than SMALL_REF_RATIO times the one-process
+    float32 step is (or SMALL_REF_TOL), as train_small_reference holds the
+    card against the CPU. Both dtypes: the ranks' models bit-equal after the
+    second step. Each float32 run takes float64's Hungarian matches in its
+    first step (its own are reported beside them): the float32 auction may
+    break a near-tie the other way, which is not rounding."""
+    t0 = time.time()
+    inputs = small_train_inputs(torch, cfg_mod, synthetic_batch)
+    work = fresh_dir(os.path.join(here, "build", "smoke_ddp", "reference"))
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    ranks = start_ranks(here, "ddp_reference", work)
+    try:  # the one-process steps run on the card while the ranks start
+        ref = {"float64": ddp_steps(torch, Engine, inputs, torch.float64)}
+        ref["float32"] = ddp_steps(torch, Engine, inputs, torch.float32,
+                                   matches=ref["float64"]["matches"])
+        ranks.wait()
+    finally:
+        ranks.stop()
+    got = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(DDP_WORLD)]
+    r64, g64 = ref["float64"], got[0]["float64"]
+    rel = lambda a, b: abs(a - b) / max(1.0, abs(b))
+    errs = {"grads": grad_errors(g64["grads"], r64["grads"]),
+            "stats": grad_errors(g64["stats"], r64["stats"])}
+    worst = {k: max(e.items(), key=lambda kv: kv[1]) for k, e in errs.items()}
+    loss_err = rel(g64["loss"], r64["loss"])
+    e2 = grad_errors(got[0]["float32"]["grads"], r64["grads"])
+    e1 = grad_errors(ref["float32"]["grads"], r64["grads"])
+    by_module = {}
+    for k in r64["grads"]:
+        pair = by_module.setdefault(k.split(".")[0], [0.0, 0.0])
+        pair[0], pair[1] = max(pair[0], e2[k]), max(pair[1], e1[k])
+    over = sorted(m for m, (two, one) in by_module.items()
+                  if two > max(SMALL_REF_TOL, SMALL_REF_RATIO * one))
+    digests = {dt: [g[dt]["digest"][:16] for g in got] for dt in ("float64", "float32")}
+    # the Hungarian matches of the first step, per scene, against float64's
+    ref_matches = r64["matches"]
+    matches_equal = {
+        "one_process_f32": bool(torch.equal(ref["float32"]["matches"], ref_matches)),
+        "ranks_f64": bool(torch.equal(torch.cat([g["float64"]["matches"] for g in got]),
+                                      ref_matches)),
+        "ranks_f32": bool(torch.equal(torch.cat([g["float32"]["matches"] for g in got]),
+                                      ref_matches))}
+    terms = {"one_process_f64": r64["terms"], "one_process_f32": ref["float32"]["terms"],
+             "ranks_f32": got[0]["float32"]["terms"]}
+    res = {"phase": "ddp_reference", "world": DDP_WORLD, "backend": "gloo",
+           "rank_devices": [g["device"] for g in got], "batch": 2,
+           "unet_depth": SMALL_REF_DEPTH, "points": inputs["cfg"].tpu_max_points,
+           "loss": {"one_process": r64["loss"], "ranks": g64["loss"]},
+           "num_gt": [r64["num_gt"], g64["num_gt"]], "f64_loss_rel_err": loss_err,
+           "f64_worst": {k: list(v) for k, v in worst.items()}, "grad_leaves": len(r64["grads"]),
+           "bn_stat_leaves": len(r64["stats"]), "tol64": SMALL_REF_TOL64,
+           "f32_by_module": by_module, "f32_modules_over": over,
+           "rank_digests_after_2_steps": digests, "matches_equal_to_f64": matches_equal,
+           "loss_terms": terms, "seconds": time.time() - t0}
+    emit(res)
+    if set(g64["grads"]) != set(r64["grads"]) or set(g64["stats"]) != set(r64["stats"]):
+        fail("ddp_reference: the ranks took gradients or statistics of other leaves")
+    if (loss_err > SMALL_REF_TOL64 or max(v[1] for v in worst.values()) > SMALL_REF_TOL64
+            or g64["num_gt"] != r64["num_gt"] or r64["num_gt"] <= 0
+            or not matches_equal["ranks_f64"]):
+        fail("ddp_reference: the float64 step on two ranks differs from the one-process step")
+    if over:
+        fail(f"ddp_reference: the float32 step on two ranks is further from float64 in {over}")
+    if any(len(set(g[dt]["digest"] for g in got)) != 1 for dt in ("float64", "float32")):
+        fail("ddp_reference: the ranks' models differ after two steps")
+    return res
+
+
+def link_dataset(here, name: str, src_base: str, train: list, val: list) -> str:
+    """A dataset root under build/ whose scenes are those of ``src_base``
+    (linked, not copied), with its own train and val splits."""
+    root = fresh_dir(os.path.join(here, "build", name))
+    base = os.path.join(root, "scannetv2")
+    os.makedirs(base)
+    os.symlink(os.path.join(src_base, "scenes"), os.path.join(base, "scenes"))
+    for split, names in (("train", train), ("val", val)):
+        with open(os.path.join(base, f"scannetv2_{split}.txt"), "w") as f:
+            f.write("\n".join(names))
+    return root
+
+
+def driver_rank(torch, work: str) -> None:
+    """A rank of a driver phase: the driver of spec.json from its command
+    line, counted (launches, peak memory, the TrainProbes for a training
+    driver), and the process group's backend and device as the driver
+    formed them."""
+    import importlib
+
+    from geoformer_tpu_torch.kernels.fps import fps
+    from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand
+    from geoformer_tpu_torch.kernels.row_gather import row_gather
+    from geoformer_tpu_torch.parallel import dist as pdist
+
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    mod = importlib.import_module(spec["module"])
+    formed = {}
+    real_init = pdist.init_distributed
+
+    def recording(*a, **kw):
+        out = real_init(*a, **kw)
+        formed.update(backend=pdist.backend(), world=pdist.get_world_size())
+        return out
+
+    pdist.init_distributed = recording
+    counters = {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather}
+    if spec["train"]:
+        res = run_train_driver(torch, f"{spec['phase']}_rank{rank}", mod.main, spec["argv"],
+                               counters, backbone_trains=True, full_phase=spec["full_phase"])
+    else:
+        res = run_eval_rank(torch, mod.main, spec["argv"], counters)
+    formed["device"] = f"cuda:{torch.cuda.current_device()}"
+    res.update(rank=rank, process_group=formed)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def run_eval_rank(torch, main, argv, counters) -> dict:
+    """One rank of an eval driver, counted; rank 0's AP table and records."""
+    for fn in counters.values():
+        fn.launches = 0
+    fps_log = counters["fps"].capture = CallLog()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    summary = main(argv)
+    torch.cuda.synchronize()
+    counters["fps"].capture = None
+    return {"seconds": time.time() - t0, "avgs": summary["avgs"], "scenes": summary["scenes"],
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": read_launches(counters, fps_log)}
+
+
+def ddp_train(torch, cfg_mod, Engine, here, counters, smoke, train) -> dict:
+    """``ddp_train``: cli.train on the published supervised config (bf16,
+    remat) at DDP_WORLD gloo ranks and a global batch of DDP_TRAIN_BATCH, on
+    the first 2 x DDP_TRAIN_BATCH training scenes of the ``train`` phase's
+    data (two steps an epoch), one prepare and one full epoch; each rank's
+    s/step by phase, peak memory, capacity counters (all 0), model digest
+    (equal) and K1 and K2 launches (> 0). Then its checkpoint through a
+    one-process cli.test, counted (``ddp_chain_test``)."""
+    from geoformer_tpu_torch.cli import test as cli_test
+
+    t0 = time.time()
+    base = os.path.join(train["root"], "scannetv2")
+    names = [f"scene{i:04d}_00" for i in range(4 * TRAIN_BATCH)]
+    root = link_dataset(here, "smoke_ddp_train", base, names[:2 * DDP_TRAIN_BATCH],
+                        names[2 * TRAIN_BATCH:])
+    cfg = train["cfgs"]["train"].replace(data_root=root, output_path=os.path.join(root, "exp"),
+                                         batch_size=DDP_TRAIN_BATCH,
+                                         **{k: v[1] for k, v in DDP_TRAIN_CUTS.items()})
+    argv = ["--config", write_yaml(os.path.join(root, "train.yaml"), cfg), "--pretrain",
+            train["paths"]["pretrain"], "--output_path", cfg.output_path, "--exp_name", "train",
+            "--dist_backend", "gloo"]
+    work = fresh_dir(os.path.join(here, "build", "smoke_ddp", "train"))
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"phase": "ddp_train", "module": "geoformer_tpu_torch.cli.train",
+                   "argv": argv, "train": True, "full_phase": True}, f)
+    torch.cuda.empty_cache()
+    ranks = start_ranks(here, "driver", work)
+    try:
+        ranks.wait()
+    finally:
+        ranks.stop()
+    got = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    res = {"phase": "ddp_train", "world": DDP_WORLD, "backend": "gloo",
+           "global_batch": DDP_TRAIN_BATCH, "cut": DDP_TRAIN_CUTS,
+           "config": "config/geoformer_scannet.yaml",
+           "ranks": [{k: g[k] for k in ("rank", "process_group", "ms_per_step", "max_memory_gb",
+                                        "capacity_counters", "num_gt", "param_digest",
+                                        "remat_blocks", "bf16_conv_operands", "seconds")}
+                     | {"launches": {k: g["launches"][k] for k in ("knn_select", "fps")},
+                        "losses": g["losses"]} for g in got],
+           "seconds": time.time() - t0}
+    emit(res)
+    if len({g["param_digest"] for g in got}) != 1:
+        fail("ddp_train: the ranks' models differ after training")
+    if [g["losses"] for g in got[1:]] != [got[0]["losses"]] * (DDP_WORLD - 1):
+        fail("ddp_train: the ranks report other global losses")
+    if any(g["process_group"].get("backend") != "gloo" or g["process_group"].get("world")
+           != DDP_WORLD for g in got):
+        fail(f"ddp_train: process groups {[g['process_group'] for g in got]}")
+    chain = run_driver(torch, "test", cli_test.main,
+                       dict(smoke["paths"]["test"], ckpt=got[0]["checkpoint"]), counters,
+                       label="ddp_chain_test")
+    emit({"phase": "ddp_chain", "checkpoint": os.path.relpath(got[0]["checkpoint"], here),
+          "all_ap": chain["all_ap"], "scenes": len(chain["scenes"])})
+    return {"res": res, "ranks": got, "checkpoint": got[0]["checkpoint"], "root": root,
+            "chain": chain}
+
+
+def ddp_eval_and_nccl(torch, cfg_mod, here, smoke, train, ddp) -> dict:
+    """``ddp_eval``: cli.test at DDP_WORLD gloo ranks and test_batch_size 2
+    on the smoke's 250,000-point val scenes, from ddp_train's checkpoint
+    with the class head's logit of class 4 raised by FG_BIAS (so that its
+    queries are proposals of the foreground class and the predictions
+    compared are not empty), against one process: every scene's
+    predictions (digest) and the AP table exactly equal to those of the
+    one-process run at test_batch_size 1, whose forwards have the ranks'
+    shapes (one scene each). The one-process run of the same command line
+    (two scenes a forward) is compared and reported beside it: on the card
+    a forward's rounding may depend on its batch size, with or without
+    ranks (``one_process_b1_vs_b2``). ``ddp_nccl`` (started with it): cli.train at a world of
+    1 under nccl for one prepare step (B = 2 on two training scenes): the
+    NCCL process group, the rank's device and the collectives' call sites
+    on the card. The one-process eval runs while the ranks do."""
+    from geoformer_tpu_torch.cli import test as cli_test
+    from geoformer_tpu_torch.engine import Engine
+    from geoformer_tpu_torch.weights import load_jax_checkpoint, save_jax_checkpoint
+
+    t0 = time.time()
+    cfg = smoke["cfgs"]["test"].replace(test_batch_size=DDP_EVAL_GROUP)
+    cut = {"test_batch_size": [smoke["cfgs"]["test"].test_batch_size, DDP_EVAL_GROUP]}
+    root = os.path.dirname(smoke["paths"]["test"]["config"])
+    engine = Engine(cfg, state_dict=load_jax_checkpoint(ddp["checkpoint"]))
+    with torch.no_grad():
+        engine.model.detr_sem_head.Dense_2.bias[4] += FG_BIAS
+    ckpt = os.path.join(root, "ddp_eval.ckpt")
+    save_jax_checkpoint(ckpt, engine.model)
+    del engine
+    argv = ["--config", write_yaml(os.path.join(root, "ddp_eval.yaml"), cfg), "--pretrain",
+            ckpt, "--output_path", os.path.join(root, "exp")]
+    argv_b1 = ["--config", write_yaml(os.path.join(root, "ddp_eval_b1.yaml"),
+                                      cfg.replace(test_batch_size=1))] + argv[2:]
+    work = fresh_dir(os.path.join(here, "build", "smoke_ddp", "eval"))
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"phase": "ddp_eval", "module": "geoformer_tpu_torch.cli.test", "train": False,
+                   "argv": argv + ["--exp_name", "ddp_eval_world2", "--dist_backend", "gloo"]}, f)
+    base = os.path.join(train["root"], "scannetv2")
+    nccl_root = link_dataset(here, "smoke_ddp_nccl", base, ["scene0000_00", "scene0001_00"], [])
+    ncfg = train["cfgs"]["train"].replace(data_root=nccl_root, batch_size=2, epochs=1,
+                                          prepare_epochs=1, start_epoch=1,
+                                          output_path=os.path.join(nccl_root, "exp"))
+    nwork = fresh_dir(os.path.join(here, "build", "smoke_ddp", "nccl"))
+    with open(os.path.join(nwork, "spec.json"), "w") as f:
+        json.dump({"phase": "ddp_nccl", "module": "geoformer_tpu_torch.cli.train", "train": True,
+                   "full_phase": False, "argv": [
+                       "--config", write_yaml(os.path.join(nccl_root, "train.yaml"), ncfg),
+                       "--pretrain", train["paths"]["pretrain"], "--output_path",
+                       ncfg.output_path, "--exp_name", "train", "--dist_backend", "nccl"]}, f)
+    torch.cuda.empty_cache()
+    ranks = start_ranks(here, "driver", work)
+    try:
+        nccl = start_ranks(here, "driver", nwork, world=1)
+        try:
+            single = {b: cli_test.main(a + ["--exp_name", f"ddp_eval_world1_b{b}"])
+                      for b, a in ((1, argv_b1), (2, argv))}
+            ranks.wait()
+            nccl.wait()
+        finally:
+            nccl.stop()
+    finally:
+        ranks.stop()
+    got = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    with open(os.path.join(nwork, "rank0.json")) as f:
+        n = json.load(f)
+    keys = ("scene", "pred_digest", "proposals", "fg_points")
+    pick = lambda scenes: [[s[k] for k in keys] for s in scenes]
+    # the AP tables through JSON on both sides (NaN for a class with no gt)
+    as_json = lambda avgs: json.dumps(avgs, sort_keys=True)
+    same = lambda a, b: {"scenes": pick(a["scenes"]) == pick(b["scenes"]),
+                         "ap_table": as_json(a["avgs"]) == as_json(b["avgs"])}
+    equal = same(got[0], single[1])
+    beside = {"vs_one_process_b2": same(got[0], single[2]),
+              "one_process_b1_vs_b2": same(single[1], single[2])}
+    res = {"phase": "ddp_eval", "world": DDP_WORLD, "backend": "gloo", "cut": cut,
+           "checkpoint": os.path.relpath(ckpt, here),
+           "all_ap": [single[1]["avgs"]["all_ap"], got[0]["avgs"]["all_ap"]],
+           "scenes": pick(got[0]["scenes"]), "equal_to_one_process_b1": equal, **beside,
+           "one_process_b2_scenes": pick(single[2]["scenes"]),
+           "ranks": [{k: g[k] for k in ("rank", "process_group", "seconds", "max_memory_gb")}
+                     | {"launches": {k: g["launches"][k] for k in ("knn_select", "fps")}}
+                     for g in got], "seconds": time.time() - t0}
+    emit(res)
+    nres = {"phase": "ddp_nccl", "process_group": n["process_group"], "steps": n["steps"],
+            "ms_per_step": n["ms_per_step"], "losses": n["losses"],
+            "capacity_counters": n["capacity_counters"], "max_memory_gb": n["max_memory_gb"],
+            "launches": {k: n["launches"][k] for k in ("knn_select", "fps")},
+            "seconds": n["seconds"]}
+    emit(nres)
+    if not all(equal.values()):
+        fail(f"ddp_eval: two ranks differ from one process: {equal}")
+    if len(got[0]["scenes"]) != 2 or sum(s["proposals"] for s in single[1]["scenes"]) <= 0:
+        fail("ddp_eval: expected two scenes with proposals")
+    if any(g["launches"][k] <= 0 for g in got for k in ("knn_select", "fps")):
+        fail("ddp_eval: a rank launched no K1 or K2")
+    if n["process_group"].get("backend") != "nccl" or n["process_group"].get("world") != 1:
+        fail(f"ddp_nccl: process group {n['process_group']}")
+    return {"eval": res, "nccl": nres, "rank_launches": [g["launches"] for g in got]}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenes", type=int, default=2, help="full-size scenes to run (>= 2)")
+    # the data-parallel phases start this script again as their ranks
+    ap.add_argument("--rank-task", choices=("ddp_reference", "driver"), help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     started = time.time()
@@ -962,6 +1431,10 @@ def main(argv=None) -> int:
         print("chip_smoke: geoformer_tpu_torch/ not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    if args.rank_task:
+        {"ddp_reference": ddp_reference_rank, "driver": driver_rank}[args.rank_task](
+            torch, args.work)
+        return 0
 
     from geoformer_tpu_torch import config as cfg_mod
     from geoformer_tpu_torch import kernels
@@ -1158,6 +1631,16 @@ def main(argv=None) -> int:
     trained = train_paths(torch, cfg_mod, Engine, here, TRAIN_BATCH, counters, data)
     train_small_reference(torch, cfg_mod, Engine, synthetic_batch)
     by_path.update(trained["by_path"])
+
+    # data parallelism: ranks of this script on the one card
+    ddp_reference(torch, cfg_mod, Engine, synthetic_batch, here)
+    ddp = ddp_train(torch, cfg_mod, Engine, here, counters, data, trained["data"])
+    ddp_eval = ddp_eval_and_nccl(torch, cfg_mod, here, data, trained["data"], ddp)
+    for r, g in enumerate(ddp["ranks"]):
+        by_path[f"ddp_train_rank{r}"] = g["launches"]
+    by_path["ddp_chain_test"] = ddp["chain"]["launches"]
+    for r, launches in enumerate(ddp_eval["rank_launches"]):
+        by_path[f"ddp_eval_rank{r}"] = launches
     k1_row["other_shapes"] = [trained["k1"]]
     fs_rows += trained["k2"]
     k2_row["other_shapes"] = fs_rows

@@ -17,14 +17,22 @@ def default_device(device=None) -> torch.device:
     """Entry points run on the card unless the caller passes a device.
 
     With no device and no CUDA this raises: the port never falls back to
-    the CPU on its own."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    the CPU on its own. Under an initialised process group (one process per
+    GPU, parallel/dist.py) an unindexed CUDA device is this rank's card,
+    ``cuda:{LOCAL_RANK}``, made the current device: never every rank on
+    ``cuda:0``."""
+    from geoformer_tpu_torch.parallel import dist
+
+    if device is None and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' explicitly to run on the CPU"
         )
-    return torch.device("cuda")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dist.is_initialized():
+        if dev.index is None:
+            dev = torch.device("cuda", dist.cuda_index())
+        torch.cuda.set_device(dev)
+    return dev
 
 
 def set_fp32_precision() -> None:

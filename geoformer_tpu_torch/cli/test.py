@@ -9,11 +9,20 @@ benchmark label -> masks projected to raw resolution -> ScanNet AP against
 ground truth derived from the scene labels. Runs on the card unless
 ``--device`` names another device; without a card and without ``--device``
 it raises. The checkpoint is a msgpack file of the JAX package
-(``weights.load_jax_checkpoint``).
+(``weights.load_jax_checkpoint``), written by a run of any world size.
+
+Data parallelism, one process per GPU (``torchrun --nproc_per_node=N -m
+geoformer_tpu_torch.cli.test ...``; ``--dist_backend gloo`` for two ranks
+on one card): each group of ``test_batch_size`` scenes (a multiple of N)
+is split over the ranks, each rank runs the forward and builds the host
+predictions of its own scenes, and rank 0 gathers them (in scene order),
+scores AP, logs and writes ``save_instance`` output. Every rank reads every
+scene, so the padding draws are those of a single process.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import time
 
@@ -26,6 +35,8 @@ from geoformer_tpu_torch.engine import Engine
 from geoformer_tpu_torch.evaluation.gt import make_gt_ids
 from geoformer_tpu_torch.evaluation.predictions import masks_to_raw
 from geoformer_tpu_torch.evaluation.scannet_eval import ScanNetEval, print_results
+from geoformer_tpu_torch.parallel.dist import process_group
+from geoformer_tpu_torch.parallel.mesh import gather_objects, make_mesh, shard_batch
 from geoformer_tpu_torch.utils.logger import create_logger
 from geoformer_tpu_torch.weights import load_jax_checkpoint
 
@@ -99,27 +110,58 @@ def to_numpy(tree):
     return {k: v.cpu().numpy() for k, v in tree.items()}
 
 
+def pred_digest(pred_info: dict) -> str:
+    """sha256 of a scene's host predictions (label ids, confidences, masks),
+    to tell exactly equal predictions apart from others cheaply."""
+    h = hashlib.sha256()
+    for k in ("label_id", "conf", "mask"):
+        v = pred_info[k]
+        for a in (v if isinstance(v, list) else [v]):
+            a = np.ascontiguousarray(a)
+            h.update(f"{k}{a.dtype}{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def group_split(group_size: int, world: int) -> int:
+    """Scenes a rank runs of each group; raises unless the ranks share the
+    group evenly."""
+    if group_size % world:
+        raise ValueError(f"test_batch_size {group_size} cannot be split over {world} ranks")
+    return group_size // world
+
+
 def main(argv=None) -> dict:
     """Run the evaluation; returns the AP averages, one record per scene and
-    the number of scenes that ran over a capacity."""
+    the number of scenes that ran over a capacity (on rank 0; the other
+    ranks return no AP and no records)."""
     cfg = config_from_args(argv)
+    with process_group(cfg.dist_backend, cfg.device):
+        return _main(cfg)
+
+
+def _main(cfg) -> dict:
     device = default_device(cfg.device)
+    mesh = make_mesh(device=device)
+    primary = mesh.rank == 0
     if cfg.save_semantic:
         raise NotImplementedError("save_semantic needs utils/visualize.py, which is not ported yet")
     ckpt_path = cfg.pretrain or cfg.resume
     if ckpt_path is None:
         raise ValueError("a checkpoint is required: --pretrain or --resume")
     exp_path = os.path.join(cfg.output_path, cfg.exp_name)
-    logger = create_logger(exp_path)
-    engine = Engine(cfg, device=device, state_dict=load_jax_checkpoint(ckpt_path))
+    logger = create_logger(exp_path if primary else None, primary=primary)
+    engine = Engine(cfg, device=device, state_dict=load_jax_checkpoint(ckpt_path), mesh=mesh)
     dataset = InstDataset(cfg, cfg.split)
-    logger.info(f"eval scenes: {len(dataset)} on {device}")
+    logger.info(f"eval scenes: {len(dataset)} on {device}, {mesh.world} rank(s)")
     save_dir = os.path.join(exp_path, "result") if cfg.save_instance else None
     evaluator = ScanNetEval(cfg.cvfold)
 
     # Scenes are evaluated `test_batch_size` per forward over a [G, P, ...]
-    # batch; the final partial group is padded by repeating the last scene.
+    # batch, G/N of them on each rank; the final partial group is padded by
+    # repeating the last scene (padded lanes are never post-processed).
     group_size = max(1, int(cfg.test_batch_size))
+    per_rank = group_split(group_size, mesh.world)
     n_scenes = len(dataset)
     records = []
 
@@ -127,30 +169,42 @@ def main(argv=None) -> dict:
         t0 = time.time()
         stacked = stack_group([b for _, _, b in group], group_size)
         out = engine.eval_batch(stacked)
+        mine = shard_batch(stacked, mesh)
         proposals = to_numpy(out["proposals"])
         keep_nms = out["nms"]["keep"].cpu().numpy()
         vs = to_numpy(out["voxel_stats"])
         fg_points = out["fg_valid"].sum(dim=1).tolist()
         dt = (time.time() - t0) / len(group)
-        for j, (i, scene_name, batch) in enumerate(group):
+        scenes = []
+        for j in range(per_rank):
+            g = mesh.rank * per_rank + j
+            if g >= len(group):
+                break
+            i, scene_name, batch = group[g]
             raw = np.load(dataset.file_names[i])
-            pred_info = proposals_to_pred_info(cfg, proposals, keep_nms, stacked, raw[:, :3],
+            pred_info = proposals_to_pred_info(cfg, proposals, keep_nms, mine, raw[:, :3],
                                                idx=j)
+            n_points = int(batch["n_points"][0])  # device-resolution count
+            scenes.append((i, scene_name, pred_info, capacity_warning(scene_name, vs, j), {
+                "scene": scene_name, "n_points": n_points, "fg_points": fg_points[j],
+                "proposals": len(pred_info["conf"]), "seconds": dt,
+                "pred_digest": pred_digest(pred_info)}))
+        gathered = gather_objects(scenes, mesh)
+        if not primary:
+            return
+        for i, scene_name, pred_info, warning, record in (s for r in gathered for s in r):
+            raw = np.load(dataset.file_names[i])
             # gt at full raw resolution, never truncated: the masks above are
             # projected to the same raw N
             gt_ids = make_gt_ids(raw[:, 6].astype(np.int32), raw[:, 7].astype(np.int32))
             evaluator.assign_instances_for_scan(scene_name, pred_info, gt_ids)
-            warning = capacity_warning(scene_name, vs, j)
             if warning:
                 logger.warning(warning)
             if save_dir is not None:
                 save_benchmark_predictions(save_dir, scene_name, pred_info)
-            n_points = int(batch["n_points"][0])  # device-resolution count
-            logger.info(f"[{i + 1}/{n_scenes}] {scene_name}: {n_points} pts, "
-                        f"{len(pred_info['conf'])} proposals, {dt:.2f}s")
-            records.append({"scene": scene_name, "n_points": n_points,
-                            "fg_points": fg_points[j], "proposals": len(pred_info["conf"]),
-                            "seconds": dt, "degraded": warning is not None})
+            logger.info(f"[{i + 1}/{n_scenes}] {scene_name}: {record['n_points']} pts, "
+                        f"{record['proposals']} proposals, {record['seconds']:.2f}s")
+            records.append(dict(record, degraded=warning is not None))
 
     group = []
     for i, (scene_name, batch) in enumerate(dataset.test_batches()):
@@ -161,6 +215,8 @@ def main(argv=None) -> dict:
     if group:
         process_group(group)
 
+    if not primary:
+        return {"avgs": None, "scenes": [], "n_degraded": 0}
     avgs = evaluator.compute_averages()
     print_results(avgs, logger)
     return {"avgs": avgs, "scenes": records,

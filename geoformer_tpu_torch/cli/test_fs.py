@@ -9,6 +9,11 @@ per active class and run decode against the cached encoding -> per-run
 matrix NMS + ScanNet AP -> mean and std over runs. Runs on the card unless
 ``--device`` names another device; without a card and without ``--device``
 it raises.
+
+Under torchrun (one process per GPU) each group of ``test_batch_size``
+scenes is encoded and decoded G/N scenes a rank; the support embeddings are
+computed on every rank alike (the same seed, the same order), and rank 0
+gathers the host predictions in scene order and scores every run.
 """
 
 from __future__ import annotations
@@ -20,7 +25,13 @@ import numpy as np
 import torch
 
 from geoformer_tpu_torch import default_device
-from geoformer_tpu_torch.cli.test import capacity_warning, stack_group, to_numpy
+from geoformer_tpu_torch.cli.test import (
+    capacity_warning,
+    group_split,
+    pred_digest,
+    stack_group,
+    to_numpy,
+)
 from geoformer_tpu_torch.config import config_from_args
 from geoformer_tpu_torch.data.episodic import FSInstDataset
 from geoformer_tpu_torch.data.scannet import BENCHMARK_SEMANTIC_LABELS
@@ -32,6 +43,8 @@ from geoformer_tpu_torch.evaluation.scannet_eval import (
     average_over_runs,
     print_results,
 )
+from geoformer_tpu_torch.parallel.dist import process_group
+from geoformer_tpu_torch.parallel.mesh import gather_objects, make_mesh
 from geoformer_tpu_torch.utils.logger import create_logger
 from geoformer_tpu_torch.weights import load_jax_checkpoint
 
@@ -75,15 +88,24 @@ def load_set_support(engine, dataset, logger, clock=None):
 
 def main(argv=None) -> dict:
     """Run the evaluation; returns the run-averaged AP, one record per scene,
-    the per-stage wall ms and the number of scenes that ran over a capacity."""
+    the per-stage wall ms and the number of scenes that ran over a capacity
+    (AP and records on rank 0 only; stage times are each rank's own)."""
     cfg = config_from_args(argv)
+    with process_group(cfg.dist_backend, cfg.device):
+        return _main(cfg)
+
+
+def _main(cfg) -> dict:
     device = default_device(cfg.device)
+    mesh = make_mesh(device=device)
+    primary = mesh.rank == 0
     ckpt_path = cfg.pretrain or cfg.resume
     if ckpt_path is None:
         raise ValueError("a checkpoint is required: --pretrain or --resume")
     exp_path = os.path.join(cfg.output_path, cfg.exp_name)
-    logger = create_logger(exp_path)
-    engine = Engine(cfg, device=device, state_dict=load_jax_checkpoint(ckpt_path), few_shot=True)
+    logger = create_logger(exp_path if primary else None, primary=primary)
+    engine = Engine(cfg, device=device, state_dict=load_jax_checkpoint(ckpt_path), few_shot=True,
+                    mesh=mesh)
     dataset = FSInstDataset(cfg, cfg.split)
     clock = StageClock(device)
 
@@ -99,9 +121,10 @@ def main(argv=None) -> dict:
 
     evaluators = [ScanNetEval(cfg.cvfold) for _ in range(cfg.run_num)]
     bench = np.asarray(BENCHMARK_SEMANTIC_LABELS)
-    # `test_batch_size` scenes encode per forward; each scene then decodes
-    # from its slice of the batched cache
+    # `test_batch_size` scenes encode per forward (G/N on each rank); each
+    # scene then decodes from its slice of the batched cache
     group_size = max(1, int(cfg.test_batch_size))
+    per_rank = group_split(group_size, mesh.world)
     records = []
 
     def slice_scene(tree, j):
@@ -109,11 +132,11 @@ def main(argv=None) -> dict:
                 for k, v in tree.items()}
 
     def process_scene(scene_name, active, host_batch, cache, t0):
+        """-> the scene's predictions per run, its capacity warning and its
+        record."""
         raw = np.load(dataset._scene_path(scene_name))
         raw_xyz = raw[:, :3]
         warning = capacity_warning(scene_name, to_numpy(cache["voxel_stats"]))
-        if warning:
-            logger.warning(warning)
         # masks are scored at the raw scene's full N, never against a
         # truncated or subsampled gt
         n_points, n_raw, sel = scene_alignment(host_batch)
@@ -144,27 +167,43 @@ def main(argv=None) -> dict:
                         "label_id": bench[cls], "conf": float(p["scores"][q]),
                         "mask": mask.astype(np.int32)})
 
-        gt_ids = make_gt_ids(raw[:, 6].astype(np.int32), raw[:, 7].astype(np.int32))
-        for run_i, preds in enumerate(per_run_preds):
-            pred_info = {
-                "label_id": np.asarray([p["label_id"] for p in preds], np.int64),
-                "conf": np.asarray([p["conf"] for p in preds], np.float64),
-                "mask": [p["mask"] for p in preds],
-            }
-            evaluators[run_i].assign_instances_for_scan(scene_name, pred_info, gt_ids)
-        dt = time.time() - t0
-        logger.info(f"{scene_name}: {len(active)} classes x {cfg.run_num} runs, {dt:.2f}s")
-        records.append({"scene": scene_name, "classes": len(active),
-                        "fg_points": int(cache["fg_valid"].sum()),
-                        "proposals_per_run": [len(p) for p in per_run_preds],
-                        "seconds": dt, "degraded": warning is not None})
+        pred_infos = [{
+            "label_id": np.asarray([p["label_id"] for p in preds], np.int64),
+            "conf": np.asarray([p["conf"] for p in preds], np.float64),
+            "mask": [p["mask"] for p in preds],
+        } for preds in per_run_preds]
+        record = {"scene": scene_name, "classes": len(active),
+                  "fg_points": int(cache["fg_valid"].sum()),
+                  "proposals_per_run": [len(p) for p in per_run_preds],
+                  "seconds": time.time() - t0,
+                  "pred_digest": [pred_digest(p) for p in pred_infos]}
+        return pred_infos, warning, record
 
     def process_group(group):
         t0 = time.time()
         stacked = stack_group([hb for _, _, hb in group], group_size)
         cache = clock.run("encode_scene", engine.encode_scene, stacked)
-        for j, (scene_name, active, host_batch) in enumerate(group):
-            process_scene(scene_name, active, host_batch, slice_scene(cache, j), t0)
+        scenes = []
+        for j in range(per_rank):
+            g = mesh.rank * per_rank + j
+            if g >= len(group):
+                break
+            scene_name, active, host_batch = group[g]
+            scenes.append((scene_name,) + process_scene(scene_name, active, host_batch,
+                                                         slice_scene(cache, j), t0))
+        gathered = gather_objects(scenes, mesh)
+        if not primary:
+            return
+        for scene_name, pred_infos, warning, record in (s for r in gathered for s in r):
+            raw = np.load(dataset._scene_path(scene_name))
+            gt_ids = make_gt_ids(raw[:, 6].astype(np.int32), raw[:, 7].astype(np.int32))
+            for run_i, pred_info in enumerate(pred_infos):
+                evaluators[run_i].assign_instances_for_scan(scene_name, pred_info, gt_ids)
+            if warning:
+                logger.warning(warning)
+            logger.info(f"{scene_name}: {record['classes']} classes x {cfg.run_num} runs, "
+                        f"{record['seconds']:.2f}s")
+            records.append(dict(record, degraded=warning is not None))
 
     group = []
     for scene_name, active, host_batch in dataset.test_batches():
@@ -175,6 +214,8 @@ def main(argv=None) -> dict:
     if group:
         process_group(group)
 
+    if not primary:
+        return {"avgs": None, "scenes": [], "stage_ms": clock.ms, "n_degraded": 0}
     avgs = average_over_runs([ev.compute_averages() for ev in evaluators])
     print_results(avgs, logger)
     return {"avgs": avgs, "scenes": records, "stage_ms": clock.ms,

@@ -16,6 +16,20 @@ experiment's last checkpoint, at the epoch after it; ``--pretrain`` loads
 weights by path suffix, skipping shape mismatches. Runs on the card unless
 ``--device`` names another device; without a card and without ``--device``
 it raises.
+
+Data parallelism, one process per GPU:
+
+    torchrun --nproc_per_node=N -m geoformer_tpu_torch.cli.train --config CONFIG.yaml ...
+
+``batch_size`` stays the global batch: each rank loads batch_size / N
+scenes a step and the step's statistics, losses and gradient are the
+global batch's (engine.py). Rank 0 alone logs and writes the checkpoints,
+between two barriers; every rank resumes from the same file, and a
+checkpoint of any world size loads in any other (it is the JAX package's
+msgpack payload). ``--dist_backend gloo`` runs two ranks on one card
+(NCCL refuses two ranks on one GPU). With more than one rank, rank r seeds
+torch's generator (dropout) with ``manual_seed + r``; a single process
+keeps torch's default seed, as before.
 """
 
 from __future__ import annotations
@@ -29,7 +43,14 @@ import torch
 from geoformer_tpu_torch import default_device
 from geoformer_tpu_torch.config import config_from_args
 from geoformer_tpu_torch.engine import Engine
-from geoformer_tpu_torch.parallel.dist import is_primary, local_seed
+from geoformer_tpu_torch.parallel.dist import (
+    barrier,
+    get_world_size,
+    is_primary,
+    local_seed,
+    process_group,
+)
+from geoformer_tpu_torch.parallel.mesh import make_mesh
 from geoformer_tpu_torch.utils.checkpoint import (
     checkpoint_path,
     find_last_checkpoint,
@@ -53,6 +74,7 @@ def train_one_epoch(engine, dataset, epoch, logger, rng_seed, writer=None, recor
     few_shot = engine.few_shot
     iter_meter, data_meter = AverageMeter(), AverageMeter()
     loss_meter = DictAverageMeter()
+    # the same seed on every rank: the subsample draws are the global batch's
     generator = torch.Generator(device=engine.device).manual_seed(rng_seed + epoch)
     n_batches = max(len(dataset) // cfg.batch_size, 1)
     batches = prefetch(dataset.train_batches(cfg.batch_size, seed=rng_seed + epoch),
@@ -64,9 +86,10 @@ def train_one_epoch(engine, dataset, epoch, logger, rng_seed, writer=None, recor
         t0 = time.time()
         if few_shot:
             support, batch, _ = item
-            loss, loss_dict, lr = engine.train_step(batch, epoch, generator, support=support)
+            loss, loss_dict, lr = engine.train_step(batch, epoch, generator, support=support,
+                                                    sharded=True)
         else:
-            loss, loss_dict, lr = engine.train_step(item, epoch, generator)
+            loss, loss_dict, lr = engine.train_step(item, epoch, generator, sharded=True)
         loss = float(loss)  # waits for the step's device work
         losses = {k: float(v) for k, v in loss_dict.items()}
         loss_meter.update(losses)
@@ -96,17 +119,26 @@ def train_one_epoch(engine, dataset, epoch, logger, rng_seed, writer=None, recor
 
 def run(argv=None, few_shot: bool = False) -> dict:
     """The training loop of either driver. Returns the epochs' mean losses,
-    one record per step and the last checkpoint's path."""
+    one record per step, the last checkpoint's path and a digest of the
+    trained model (``state_digest``)."""
     cfg = config_from_args(argv)
+    with process_group(cfg.dist_backend, cfg.device):
+        return _run(cfg, few_shot)
+
+
+def _run(cfg, few_shot: bool) -> dict:
     device = default_device(cfg.device)
+    mesh = make_mesh(device=device)
     primary = is_primary()
     exp_path = os.path.join(cfg.output_path, cfg.exp_name)
     logger = create_logger(exp_path if primary else None, primary=primary)
     writer = ScalarWriter(exp_path) if primary else None
     logger.info(f"config: {cfg.config}")
     np.random.seed(local_seed(cfg.manual_seed))
+    if get_world_size() > 1:
+        torch.manual_seed(local_seed(cfg.manual_seed))
 
-    engine = Engine(cfg, device=device, seed=cfg.manual_seed, few_shot=few_shot)
+    engine = Engine(cfg, device=device, seed=cfg.manual_seed, few_shot=few_shot, mesh=mesh)
     if few_shot:
         from geoformer_tpu_torch.data.episodic import FSInstDataset
 
@@ -115,7 +147,7 @@ def run(argv=None, few_shot: bool = False) -> dict:
         from geoformer_tpu_torch.data.scannet import InstDataset
 
         dataset = InstDataset(cfg, "train")
-    logger.info(f"training scenes: {len(dataset)} on {device}")
+    logger.info(f"training scenes: {len(dataset)} on {device}, rank {mesh.rank} of {mesh.world}")
     state = engine.init_state()
 
     start_epoch = cfg.start_epoch
@@ -133,15 +165,30 @@ def run(argv=None, few_shot: bool = False) -> dict:
     for epoch in range(start_epoch, cfg.epochs + 1):
         epochs[epoch] = train_one_epoch(engine, dataset, epoch, logger, cfg.manual_seed, writer,
                                         records)
+        barrier()
+        last = checkpoint_path(exp_path)
         if primary:  # single checkpoint writer across processes
             payload = state_payload(state, epoch)
             if epoch % cfg.save_freq == 0:
                 save_checkpoint(checkpoint_path(exp_path, epoch), payload)
-            last = checkpoint_path(exp_path)
             save_checkpoint(last, payload)
+        barrier()  # no rank goes on before the file is whole
     if writer is not None:
         writer.close()
-    return {"epochs": epochs, "steps": records, "checkpoint": last}
+    return {"epochs": epochs, "steps": records, "checkpoint": last,
+            "param_digest": state_digest(engine.model)}
+
+
+def state_digest(model) -> str:
+    """sha256 of the model's parameters and buffers, in their order: equal
+    on every rank of a data-parallel run."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def main(argv=None) -> dict:

@@ -256,10 +256,13 @@ def scannet_fs_eval_config(**overrides) -> Config:
 
 
 def config_from_args(argv=None) -> Config:
-    """The eval drivers' command line: that of the JAX package's test.py and
-    test_fs.py plus ``--device`` (the card when omitted; without one this
-    raises, before the config file is read). The JAX profiler hook ``--profile_dir`` has no counterpart
-    here."""
+    """The drivers' command line: that of the JAX package's train.py,
+    test.py and their few-shot twins, plus ``--device`` (the card when
+    omitted; without one this raises, before the config file is read) and
+    ``--dist_backend`` (the process group's backend under torchrun:
+    ``nccl`` on the card, ``gloo`` on the CPU by default; ``gloo`` lets two
+    ranks share one card). The JAX profiler hook ``--profile_dir`` has no
+    counterpart here."""
     p = argparse.ArgumentParser("geoformer_tpu_torch")
     p.add_argument("--config", type=str, default=None, help="path to config yaml")
     p.add_argument("--pretrain", type=str, default=None, help="path to pretrain checkpoint")
@@ -270,6 +273,9 @@ def config_from_args(argv=None) -> Config:
     p.add_argument("--use_backbone", action="store_true")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default: the CUDA card (no silent CPU fallback)")
+    p.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                   help="torch.distributed backend under torchrun (default: nccl on the "
+                        "card, gloo on the CPU)")
     args = p.parse_args(argv)
     default_device(args.device)  # raises without a card, before any file is read
     return load_config(
@@ -279,4 +285,5 @@ def config_from_args(argv=None) -> Config:
         output_path=args.output_path,
         exp_name=args.exp_name,
         device=args.device,
+        dist_backend=args.dist_backend,
     )

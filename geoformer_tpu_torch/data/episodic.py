@@ -26,7 +26,7 @@ from geoformer_tpu_torch.data.augment import (
     elastic,
 )
 from geoformer_tpu_torch.data.collate import pad_batch
-from geoformer_tpu_torch.data.scannet import FOLD
+from geoformer_tpu_torch.data.scannet import FOLD, local_batch_size
 
 
 def region_crop_instance(xyz, instance_label, instance_id, scale_factor=2):
@@ -151,16 +151,19 @@ class FSInstDataset:
 
     def train_batches(self, batch_size, seed=0, epochs=1):
         """Generator of (support batch, query batch, infos) episodes.
-        Rank-offset RNGs give each process its own episode stream."""
+        ``batch_size`` is the global batch: a process draws batch_size /
+        world episodes a step, from its own rank-offset stream, and every
+        process yields len // batch_size batches."""
         from geoformer_tpu_torch.parallel.dist import get_world_size, local_seed
 
+        per_rank = local_batch_size(batch_size, get_world_size())
         rng = np.random.default_rng(local_seed(seed))
         pyrng = random.Random(local_seed(seed))
-        n_batches = max(len(self) // (batch_size * get_world_size()), 1)
+        n_batches = max(len(self) // batch_size, 1)
         for _ in range(epochs):
             for _ in range(n_batches):
                 queries, supports, infos = [], [], []
-                for _ in range(batch_size):
+                for _ in range(per_rank):
                     cls = pyrng.choice(self.fold_classes)
                     query_name = pyrng.choice(self.class2scans[cls])
                     queries.append(self._query_scene(query_name, cls, rng, aug=True))

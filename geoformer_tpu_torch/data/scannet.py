@@ -50,6 +50,14 @@ def remap_semantic_labels(label: np.ndarray, fold_classes: list[int]) -> np.ndar
     return out
 
 
+def local_batch_size(batch_size: int, world: int) -> int:
+    """A rank's share of the global batch; raises when the ranks cannot
+    share it evenly."""
+    if batch_size % world:
+        raise ValueError(f"the batch of {batch_size} cannot be split over {world} ranks")
+    return batch_size // world
+
+
 class InstDataset:
     """Fully-supervised dataset (scannetv2_inst.py:24-455)."""
 
@@ -111,16 +119,21 @@ class InstDataset:
     def train_batches(self, batch_size, seed=0, epochs=1):
         """Generator of padded training batches (shuffled, drop_last).
 
-        Multi-process runs get a per-process strided shard of the same
-        global shuffle (DistributedSampler semantics) and a rank-offset
-        augment RNG."""
-        from geoformer_tpu_torch.parallel.dist import local_seed, shard_indices
+        ``batch_size`` is the global batch. Multi-process runs get a
+        per-process strided shard of the same global shuffle
+        (DistributedSampler semantics, every shard padded to one length),
+        load batch_size / world scenes of it a step and augment with a
+        rank-offset RNG: every rank yields the same number of batches, and
+        a step's scenes over all ranks are the global shuffle's next
+        batch_size."""
+        from geoformer_tpu_torch.parallel.dist import get_world_size, local_seed, shard_indices
 
+        per_rank = local_batch_size(batch_size, get_world_size())
         rng = np.random.default_rng(local_seed(seed))
         for e in range(epochs):
             order = shard_indices(len(self), batch_size, seed + e)
-            for i in range(0, len(order) - batch_size + 1, batch_size):
-                scenes = [self.build_scene(j, rng, True) for j in order[i : i + batch_size]]
+            for i in range(0, len(order) - per_rank + 1, per_rank):
+                scenes = [self.build_scene(j, rng, True) for j in order[i : i + per_rank]]
                 yield pad_batch(scenes, self.cfg.tpu_max_points, rng)
 
     def test_batches(self):

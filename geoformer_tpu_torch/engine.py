@@ -10,6 +10,14 @@ category). ``train_step`` is one step of either model: the prepare phase
 (epoch <= prepare_epochs; the supervised model's semantic head only, the
 criterion's semantic CE) or the full phase, its backward pass and the
 optimizer's update (``init_state`` builds the optimizer).
+
+``mesh`` (parallel/mesh.py; by default that of the process group, a world
+of 1 without one) is the JAX Engine's data mesh: ``train_step`` and the
+eval methods take the global batch and run this rank's rows of it
+(``train_step(..., sharded=True)`` takes rows a rank loaded itself). A
+training step runs under the ambient mesh, so its batch norms, draws and
+loss normalisers are the global batch's, its gradient the global one, and
+its returned loss and loss terms the global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from geoformer_tpu_torch.losses import FSInstSetCriterion, InstSetCriterion
 from geoformer_tpu_torch.models.geoformer import GeoFormer, ModelConfig
 from geoformer_tpu_torch.models.geoformer_fs import GeoFormerFS
 from geoformer_tpu_torch.ops.nms import matrix_nms
+from geoformer_tpu_torch.parallel.mesh import all_reduce_sum, make_mesh, set_mesh, shard_batch
 from geoformer_tpu_torch.parallel.train_state import TrainState
 from geoformer_tpu_torch.utils.scheduler import adjust_learning_rate, cosine_lr_after_step
 from geoformer_tpu_torch.weights import random_state_dict
@@ -31,10 +40,12 @@ _DTYPES = {"coords": torch.long, "point_mask": torch.bool}
 
 class Engine:
     def __init__(self, cfg, device=None, state_dict=None, seed: int = 0,
-                 few_shot: bool = False):
+                 few_shot: bool = False, mesh=None):
         """Raises when no device is given and CUDA is absent. Without a
-        state_dict the weights are seeded random (``random_state_dict``)."""
+        state_dict the weights are seeded random (``random_state_dict``,
+        the same on every rank)."""
         self.device = default_device(device)
+        self.mesh = mesh or make_mesh(device=self.device)
         set_fp32_precision()
         self.cfg = cfg
         self.few_shot = few_shot
@@ -52,7 +63,7 @@ class Engine:
 
     def init_state(self) -> TrainState:
         """The optimizer over the trainable modules, step 0."""
-        self.state = TrainState(self.cfg, self.model)
+        self.state = TrainState(self.cfg, self.model, self.mesh)
         return self.state
 
     def learning_rate(self, epoch: int) -> float:
@@ -63,32 +74,44 @@ class Engine:
                                     cfg.epochs, epoch)
 
     def train_step(self, batch: dict, epoch: int, generator: torch.Generator,
-                   support: dict | None = None):
-        """One training (micro-)step on a [B, ...] batch (and the few-shot
-        model's support batch): forward in training mode, criterion,
-        backward, update. ``generator`` (on the engine's device) draws the
-        random subsamples. -> (loss, loss_dict, lr); the loss and the dict's
-        values are detached tensors on the device."""
+                   support: dict | None = None, sharded: bool = False):
+        """One training (micro-)step on a global [B, ...] batch (and the
+        few-shot model's support batch), or with ``sharded`` on this rank's
+        rows of it: forward in training mode, criterion, backward, update.
+        ``generator`` (on the engine's device, seeded alike on every rank)
+        draws the random subsamples. -> (loss, loss_dict, lr); the loss and
+        the dict's values are detached tensors on the device, the global
+        batch's."""
         if self.state is None:
             self.init_state()
         cfg = self.cfg
         prepare = epoch <= cfg.prepare_epochs
         epoch_repr = 0 if prepare else cfg.prepare_epochs + 1
         lr = self.learning_rate(epoch)
+        if not sharded:
+            batch = shard_batch(batch, self.mesh)
+            support = shard_batch(support, self.mesh) if support is not None else None
         tb = self.to_device(batch)
         self.model.train()
         try:
-            if self.few_shot:
-                out = self.model(self.to_device(support), tb, train=True, generator=generator)
-            else:
-                out = self.model(tb, train=True, semantic_only=prepare, generator=generator)
-            loss, loss_dict = self.criterion(out, tb, epoch_repr)
-            loss.backward()
+            with set_mesh(self.mesh):
+                if self.few_shot:
+                    out = self.model(self.to_device(support), tb, train=True,
+                                     generator=generator)
+                else:
+                    out = self.model(tb, train=True, semantic_only=prepare, generator=generator)
+                loss, loss_dict = self.criterion(out, tb, epoch_repr)
+                loss.backward()
             self.last_voxel_stats = out["voxel_stats"]
         finally:
             self.model.eval()
         self.state.apply_gradients(lr)
-        return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}, lr
+        # each rank's loss terms are its parts of the global batch's
+        names = sorted(loss_dict)
+        total = all_reduce_sum(torch.stack([loss_dict[k].detach().to(loss.dtype)
+                                            for k in names]), self.mesh)
+        loss_dict = dict(zip(names, total.unbind()))
+        return loss_dict["loss"], loss_dict, lr
 
     def to_device(self, batch: dict) -> dict:
         """A numpy (or tensor) batch as tensors on the engine's device."""
@@ -111,14 +134,15 @@ class Engine:
 
     @torch.no_grad()
     def eval_batch(self, batch: dict) -> dict:
-        """Supervised eval forward on a [B, ...] batch: the JAX forward's
-        outputs (semantic_scores, voxel_stats, fg_idx, fg_valid, query_valid,
+        """Supervised eval forward on a global [B, ...] batch, of which this
+        rank runs its rows [B/N, ...]: the JAX forward's outputs
+        (semantic_scores, voxel_stats, fg_idx, fg_valid, query_valid,
         cls_logits, mask_logits, proposals) plus ``nms``: per-scene
-        matrix-NMS keep flags and decayed scores [B, Q]."""
+        matrix-NMS keep flags and decayed scores [B/N, Q]."""
         if self.few_shot:
             raise ValueError("the few-shot engine runs process_support, encode_scene "
                              "and decode_with_support")
-        out = self.model(self.to_device(batch))
+        out = self.model(self.to_device(shard_batch(batch, self.mesh)))
         out["nms"] = self._nms(out["proposals"], out["proposals"]["classes"])
         return out
 
@@ -131,9 +155,10 @@ class Engine:
 
     @torch.no_grad()
     def encode_scene(self, scene_batch: dict) -> dict:
-        """Scene batch -> the support-independent cache (plus the batch's
-        point_mask, pc_mins and pc_maxs, which the decode needs)."""
-        tb = self.to_device(scene_batch)
+        """Global scene batch -> the support-independent cache of this
+        rank's rows (plus their point_mask, pc_mins and pc_maxs, which the
+        decode needs); ``decode_with_support`` takes such a cache."""
+        tb = self.to_device(shard_batch(scene_batch, self.mesh))
         cache = self.model.encode_scene(tb)
         cache.update(point_mask=tb["point_mask"], pc_mins=tb["pc_mins"], pc_maxs=tb["pc_maxs"])
         return cache

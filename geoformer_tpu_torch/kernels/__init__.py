@@ -5,7 +5,10 @@ shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use (never at import), one ``nvcc -c`` per source started
 together, into ``build/`` at the repository root (listed in .gitignore). The
 library's file name carries a hash of the sources, so an edited source
-rebuilds.
+rebuilds. Processes that share ``build/`` (the ranks of a data-parallel
+run) build one at a time under a file lock, and the library and its log
+appear by ``os.replace``: no process loads a half-written file, and the
+second finds the first's library.
 
 Wrappers (``kernels/fps.py``, ``kernels/knn_select.py``,
 ``kernels/row_gather.py``) take the plain
@@ -15,7 +18,9 @@ raise if the kernel cannot run, and never fall back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -60,14 +65,31 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libgeoformer_kernels_{h.hexdigest()[:12]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".kernels.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> str:
     """Compile every csrc/*.cu (in parallel) and link one shared library;
     returns its path. A no-op when the library for these sources exists."""
-    global build_seconds
     out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _build_lock():
+        if not os.path.exists(out):  # another process may have built it meanwhile
+            _build(out)
+    return out
+
+
+def _build(out: str) -> None:
+    global build_seconds
     nvcc = _nvcc()
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -89,11 +111,11 @@ def build() -> str:
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        with open(out + ".log", "w") as f:
+        with open(os.path.join(tmp, "lib.log"), "w") as f:
             f.write("".join(logs))
+        os.replace(os.path.join(tmp, "lib.log"), out + ".log")
         os.replace(tmp_so, out)
     build_seconds = time.time() - t0
-    return out
 
 
 def build_log() -> str:

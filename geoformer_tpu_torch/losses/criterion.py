@@ -4,6 +4,15 @@ Prepare phase (epoch <= prepare_epochs): semantic CE only. Full phase: per
 decoder layer, dice + sigmoid-focal on the Hungarian-matched masks and CE
 over the query classes; the match is made once, on the detached last layer,
 and reused for every layer. All losses are masked static-shape math.
+
+Under a data mesh (parallel/mesh.py) each rank holds its rows of the global
+batch, and every normaliser that spans scenes is the global one, summed
+over the ranks with no gradient: the semantic CE's count of labelled
+points and the batch size that the mask and class losses divide by. A
+rank's loss is then its part of the global loss, and the sum of the ranks'
+gradients is the global gradient. Per-scene normalisers (a scene's matched
+instances, its valid points, its valid queries) stay local; so does the
+matcher, which is per scene.
 """
 
 from __future__ import annotations
@@ -17,16 +26,23 @@ from geoformer_tpu_torch.losses.matcher import (
     dice_cost,
     hungarian_assign,
 )
+from geoformer_tpu_torch.parallel.mesh import all_reduce_sum, data_rows
 
 
-def softmax_cross_entropy_ignore(logits, labels, ignore_label=-100, valid=None):
-    """Mean CE over the entries whose label != ignore (and valid)."""
+def softmax_cross_entropy_ignore(logits, labels, ignore_label=-100, valid=None,
+                                 global_count: bool = False):
+    """Mean CE over the entries whose label != ignore (and valid); with
+    ``global_count`` over the global batch's entries (the count summed over
+    the ranks of the data mesh)."""
     mask = labels != ignore_label
     if valid is not None:
         mask = mask & valid
     safe = torch.where(mask, labels, 0).long()
     ce = -torch.gather(F.log_softmax(logits, dim=-1), -1, safe[..., None])[..., 0]
-    return torch.where(mask, ce, 0.0).sum() / mask.sum().clamp(min=1)
+    count = mask.sum()
+    if global_count:
+        count = all_reduce_sum(count)
+    return torch.where(mask, ce, 0.0).sum() / count.clamp(min=1)
 
 
 def masked_dice_loss(pred_logits, targets, pair_valid, point_valid, num_gt):
@@ -56,7 +72,7 @@ def masked_focal_loss(pred_logits, targets, pair_valid, point_valid, num_gt,
 def matched_mask_losses(mask_logits, pred_inds, inst_masks, inst_valid, fg_valid):
     """One layer's dice and focal: mask_logits [B,Q,F] gathered at the
     matched queries pred_inds [B,I], per scene over its own instances,
-    summed and divided by B."""
+    summed and divided by the global batch size."""
     pm = torch.gather(mask_logits, 1, pred_inds[..., None].expand(-1, -1, mask_logits.shape[2]))
     pv = inst_valid.float()
     dice = focal = 0.0
@@ -64,7 +80,7 @@ def matched_mask_losses(mask_logits, pred_inds, inst_masks, inst_valid, fg_valid
         ngt = pv[b].sum()
         dice = dice + masked_dice_loss(pm[b], inst_masks[b], pv[b], fg_valid[b], ngt)
         focal = focal + masked_focal_loss(pm[b], inst_masks[b], pv[b], fg_valid[b], ngt)
-    bsz = mask_logits.shape[0]
+    bsz = data_rows(mask_logits.shape[0])[0]
     return dice / bsz, focal / bsz
 
 
@@ -91,7 +107,8 @@ class InstSetCriterion:
             sem_loss = semantic_scores.new_zeros(())
         else:
             sem_loss = softmax_cross_entropy_ignore(
-                semantic_scores, batch["labels"], self.ignore, batch["point_mask"])
+                semantic_scores, batch["labels"], self.ignore, batch["point_mask"],
+                global_count=True)
         loss = sem_loss
         loss_dict = {"sem_loss": sem_loss}
         if epoch <= self.cfg.prepare_epochs or "mask_logits" not in outputs:
@@ -117,6 +134,7 @@ class InstSetCriterion:
             pred_inds = self._assign(cost, inst_valid)  # [B,I]
 
         bsz = mask_logits.shape[1]
+        global_bsz = data_rows(bsz)[0]
         # class targets: 0 everywhere but at the matched queries
         cls_label = torch.zeros(cls_logits.shape[1:3], dtype=torch.long,
                                 device=cls_logits.device)
@@ -127,7 +145,7 @@ class InstSetCriterion:
             d, f = matched_mask_losses(mask_logits[layer], pred_inds, inst_masks, inst_valid,
                                        fg_valid)
             c = sum(softmax_cross_entropy_ignore(cls_logits[layer, b], cls_label[b], -100,
-                                                 query_valid[b]) for b in range(bsz)) / bsz
+                                                 query_valid[b]) for b in range(bsz)) / global_bsz
             loss = loss + self.w_dice * d + self.w_focal * f + self.w_cls * c
             if layer == n_layers - 1:
                 loss_dict.update({"dice_loss": d, "focal_loss": f, "cls_loss": c})

@@ -6,6 +6,10 @@ its mode instance (positive >= 0.5, negative <= 0.3), BCE with hard-negative
 mining at negative_ratio x positives. Positives are excluded from the
 negative pool, the intended semantics of the reference (see the JAX
 module's note).
+
+Under a data mesh (parallel/mesh.py) the similarity loss divides by the
+global batch's positives (summed over the ranks with no gradient) and the
+mask losses by the global batch size (losses/criterion.py).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from geoformer_tpu_torch.losses.criterion import matched_mask_losses, matcher
 from geoformer_tpu_torch.losses.matcher import build_gt_instances, dice_cost
+from geoformer_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def bce_with_logits(logits, targets):
@@ -54,7 +59,7 @@ def similarity_loss(similarity, mask_logits, inst_fg, fg_valid, query_valid, neg
         loss_hard = torch.where(ranks < n_hard, neg_sorted.clamp(min=0.0), 0.0).sum()
         losses.append(loss_pos + loss_hard)
         n_pos.append(num_pos)
-    total_pos = torch.stack(n_pos).sum()
+    total_pos = all_reduce_sum(torch.stack(n_pos).sum())
     loss = torch.stack(losses).sum() / total_pos.clamp(min=1)
     return torch.where(total_pos > 0, loss, 0.0)
 

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from geoformer_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over all leading axes with statistics over valid rows only
@@ -24,7 +26,18 @@ class MaskedBatchNorm(nn.Module):
     mask [...]. In eval mode the running statistics are used; in training
     the batch's, and the running statistics take one update a forward
     unless ``update_stats`` is off (the recompute of a rematerialized
-    block, models/unet.py)."""
+    block, models/unet.py).
+
+    Under a data mesh of N ranks (parallel/mesh.py) the training
+    statistics are those of the global batch, as the JAX module computes
+    them over the whole sharded batch: ``sum m*x`` and ``sum m`` are summed
+    over the ranks, then ``sum m*(x - mean)^2`` (the two-pass form, not
+    E[x^2] - E[x]^2, whose rounding differs); ``all_reduce_sum`` carries
+    the gradient across the ranks, and the running statistics take the
+    global count, so they stay equal on every rank. A rematerialized block
+    runs its forward again in the backward and issues the same two
+    collectives again: every rank recomputes the same blocks in the same
+    order, so the ranks' collectives still pair up."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-4):
         super().__init__()
@@ -40,9 +53,10 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             m = mask.to(x.dtype)[..., None]
             lead = tuple(range(x.ndim - 1))
-            n = m.sum().clamp(min=1.0)
-            mean = (x * m).sum(dim=lead) / n
-            var = (m * (x - mean) ** 2).sum(dim=lead) / n
+            total = all_reduce_sum(torch.cat([(x * m).sum(dim=lead), m.sum()[None]]))
+            n = total[-1].clamp(min=1.0)
+            mean = total[:-1] / n
+            var = all_reduce_sum((m * (x - mean) ** 2).sum(dim=lead)) / n
             if self.update_stats:
                 self._update_running(mean, var, n)
         else:

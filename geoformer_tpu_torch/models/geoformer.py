@@ -20,6 +20,14 @@ config's ``fix_module``) runs in eval mode, and its output is detached, as
 the JAX model's ``train_for`` and ``stop_gradient`` do. The radius graph and
 the geodesic solve take only data and run without a gradient; so do the
 FPS (K2) and the k-smallest selection (K1), whose outputs are indices.
+
+Data parallelism (parallel/mesh.py): a rank runs its own rows of the
+global batch. Its batch norms take the global batch's statistics
+(models/blocks.py), and its subsample draws are its rows of the global
+batch's table (``draw_subsample``), so each scene packs as it does in a
+single process. Dropout draws from the process's own generator, seeded
+per rank by the drivers: statistically the same, not the same masks (the
+equality checks run with dropout 0).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from geoformer_tpu_torch.ops.geodesic import geodesic_distance_hier
 from geoformer_tpu_torch.ops.radius_graph import radius_knn
 from geoformer_tpu_torch.ops.sparse_conv import build_grid_plan, plan_stats, voxel_capacities
 from geoformer_tpu_torch.ops.voxelize import devoxelize, voxel_mean_pool
+from geoformer_tpu_torch.parallel.mesh import data_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,13 +194,20 @@ def pack_by_mask(mask: torch.Tensor, capacity: int):
 def draw_subsample(mask: torch.Tensor, capacity: int, generator: torch.Generator):
     """The random draws of ``random_pack_by_mask`` on mask [B,P]: one
     rotation offset in [0, n_valid) per scene [B] when capacity >= P, else
-    uniform scores [B,P]. ``generator`` lives on mask's device."""
+    uniform scores [B,P]. ``generator`` lives on mask's device.
+
+    Under a data mesh (parallel/mesh.py) mask holds this rank's rows of the
+    global batch: every rank draws the global batch's table from the same
+    seed and keeps its own rows, so a scene's draws are those a single
+    process draws for it."""
     b, p = mask.shape
+    total, first = data_rows(b)
+    rows = slice(first, first + b)
     if capacity >= p:
         n_valid = mask.sum(dim=1).clamp(min=1)
-        u = torch.rand(b, generator=generator, device=mask.device)
+        u = torch.rand(total, generator=generator, device=mask.device)[rows]
         return torch.minimum((u * n_valid).long(), n_valid - 1)
-    return torch.rand(b, p, generator=generator, device=mask.device)
+    return torch.rand(total, p, generator=generator, device=mask.device)[rows]
 
 
 def pack_from_draws(mask: torch.Tensor, capacity: int, draws: torch.Tensor):

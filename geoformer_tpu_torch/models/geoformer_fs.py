@@ -13,6 +13,11 @@ is the cheap per-support leg, which the test driver runs per class and run
 against one cached scene. In training the decode predicts with every decoder
 layer on a random fg subsample, and ``process_support`` still runs without a
 gradient and with its modules in eval mode, as in the JAX model.
+
+Data parallelism: as in models/geoformer.py, a rank holds its rows of the
+global query and support batches; the similarity net's batch norms take
+the global batch's statistics, and the subsample draws are the rank's rows
+of the global batch's table (``draw_subsample``). Dropout draws per rank.
 """
 
 from __future__ import annotations

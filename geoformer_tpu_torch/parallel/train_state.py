@@ -15,7 +15,19 @@ SGD with momentum and decayed weights added before the momentum, under
   gradient, as JAX's gradient of the whole tree gives it (Adam's moments
   still decay);
 * ``grad_accum_steps`` = k: the running mean of k micro-step gradients,
-  one update on the k-th micro-step, the parameters unchanged in between.
+  one update on the k-th micro-step, the parameters unchanged in between;
+* under a data mesh of N ranks (parallel/mesh.py), one all-reduce of
+  the SUM of the trainable gradients, flattened into one buffer, before
+  each update: the losses are normalised over the global batch
+  (losses/), so the sum is the global batch's gradient, as SPMD's
+  implicit psum makes it in the JAX package (DDP's mean would be N times
+  too small). Every trainable parameter takes part, with zeros where the
+  step's loss did not reach it, so every rank reduces the same buffer; the
+  frozen modules are in no rank's buffer. With accumulation the reduction
+  runs once, at the update, on the window's mean (the mean of the ranks'
+  sums is the sum of their means). No ``DistributedDataParallel``: its
+  module wrapping does not fit the frozen modules, the remat and the
+  phase-dependent graph (``semantic_only``).
 
 ``weights.opt_state_to_jax`` / ``opt_state_from_jax`` carry this state to and
 from the optax state tree of a JAX checkpoint.
@@ -24,6 +36,8 @@ from the optax state tree of a JAX checkpoint.
 from __future__ import annotations
 
 import torch
+
+from geoformer_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 # cfg.fix_module names -> the model's top-level modules
 _FIX_NAME_MAP = {
@@ -57,8 +71,9 @@ class TrainState:
     ``gradient_step`` the updates made under accumulation, ``mini_step``
     the micro-step within the current accumulation window."""
 
-    def __init__(self, cfg, model: torch.nn.Module):
+    def __init__(self, cfg, model: torch.nn.Module, mesh: Mesh | None = None):
         self.model = model
+        self.mesh = mesh
         self.optim_name = cfg.optim.lower()
         self.frozen = frozen_toplevel_names(cfg.fix_module)
         self.params = {}
@@ -94,6 +109,23 @@ class TrainState:
             group["lr"] = self.lr
 
     @torch.no_grad()
+    def reduce_gradients(self) -> None:
+        """The trainable gradients summed over the data mesh's ranks, in one
+        all-reduce of one flat buffer (per dtype); nothing without a process
+        group."""
+        if self.mesh is None or self.mesh.group is None:
+            return
+        by_dtype = {}
+        for p in self.params.values():
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+    @torch.no_grad()
     def apply_gradients(self, lr: float) -> None:
         """One micro-step after ``loss.backward()``: an update at ``lr``, or
         with accumulation the gradients' running mean (and an update of it on
@@ -103,6 +135,7 @@ class TrainState:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.accum == 1:
+            self.reduce_gradients()
             self.optimizer.step()
             self.updates += 1
         else:
@@ -113,6 +146,7 @@ class TrainState:
             if n == self.accum - 1:
                 for k, p in self.params.items():
                     p.grad.copy_(self.acc_grads[k])
+                self.reduce_gradients()
                 self.optimizer.step()
                 self.updates += 1
                 self.gradient_step += 1

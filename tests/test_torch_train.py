@@ -33,6 +33,13 @@ Tolerances: the loss and every gradient leaf within 1e-4 x max(1, |ref|inf)
 (f32 sums reassociated through the U-Net, the decoder and the mask head's
 backward); BN running statistics within 1e-5; the number of matched
 instances exactly equal.
+
+The same steps on two ``gloo`` ranks, one scene a rank (the module spawns
+its ranks once, tests/torch_dist_worker.py, with the same injected draws):
+the global batch's loss, gradient and statistics are held against the same
+JAX outputs at the same tolerances, and a step whose second rank holds no
+gt instance against the one-process step on that batch; the ranks' models
+must be bit-equal after the step.
 """
 
 import numpy as np
@@ -50,22 +57,18 @@ from geoformer_tpu.models.geoformer import ModelConfig as JaxModelConfig
 import geoformer_tpu_torch.models.geoformer as gf
 from geoformer_tpu_torch.config import load_config
 from geoformer_tpu_torch.engine import Engine
-from geoformer_tpu_torch.models.unet import BottleneckTransformer
 from geoformer_tpu_torch.synthetic import room_points
 from geoformer_tpu_torch.weights import from_jax_variables, random_state_dict, to_jax_variables
+from torch_dist_worker import ROTATION, SpawnedRanks, draw_table, no_dropout, port_pack
 
 TOL = 1e-4
 STATS_TOL = 1e-5
-ROTATION = 7  # the injected rotation offset (mod the scene's valid count)
+WORLD = 2
 
 
 def port_config(cfg, **kw):
     """A JAX-package config as the port's config (same keys and values)."""
     return load_config(None, **{k: v for k, v in vars(cfg.replace(**kw)).items() if k != "config"})
-
-
-def draw_table(p: int, capacity: int) -> np.ndarray:
-    return np.random.default_rng(capacity).random(p).astype(np.float32)
 
 
 def jax_pack(mask, capacity, rng):
@@ -81,16 +84,6 @@ def jax_pack(mask, capacity, rng):
     return idx, mask[idx]
 
 
-def port_pack(mask, capacity, generator):
-    """The port's random_pack_by_mask with the same draws."""
-    b, p = mask.shape
-    if capacity >= p:
-        draws = ROTATION % mask.sum(dim=1).clamp(min=1)
-    else:
-        draws = torch.from_numpy(draw_table(p, capacity)).expand(b, p)
-    return gf.pack_from_draws(mask, capacity, draws)
-
-
 class _NoDropTransformer(junet.BottleneckTransformer):
     dropout: float = 0.0
 
@@ -102,12 +95,6 @@ def injected(monkeypatch):
     monkeypatch.setattr(jgf_fs, "random_pack_by_mask", jax_pack)
     monkeypatch.setattr(junet, "BottleneckTransformer", _NoDropTransformer)
     monkeypatch.setattr(gf, "random_pack_by_mask", port_pack)
-
-
-def no_dropout(model):
-    for mod in model.modules():
-        if isinstance(mod, BottleneckTransformer):
-            mod.dropout = 0.0
 
 
 def jit_default(f, *args):
@@ -196,8 +183,9 @@ def assert_grads(grads, jax_grads, frozen=()):
 
 
 def assert_stats(model, jax_stats, only=None):
+    """The BN running statistics of ``model`` (or of a state_dict)."""
     want = from_jax_variables({"batch_stats": jax_stats})
-    got = model.state_dict()
+    got = model if isinstance(model, dict) else model.state_dict()
     for k, w in want.items():
         if only is None or k.split(".")[0] in only:
             assert_close(got[k].numpy(), w.numpy(), STATS_TOL, k)
@@ -218,7 +206,32 @@ def supervised_inputs(tiny_cfg):
 
 
 @pytest.fixture(scope="module")
-def supervised(supervised_inputs):
+def two_ranks_started(supervised_inputs, tmp_path_factory):
+    """The supervised steps on two ranks (one scene a rank), started before
+    the JAX reference compiles: the full and the prepare phase on the test
+    batch, and the full phase on it with the second scene's instances
+    removed."""
+    nb, pcfg, sd = (supervised_inputs[k] for k in ("nb", "pcfg", "sd"))
+    no_gt = dict(nb, instance_labels=nb["instance_labels"].copy())
+    no_gt["instance_labels"][1] = -100
+    tasks = {"full": train_task(pcfg, sd, nb, 2), "prepare": train_task(pcfg, sd, nb, 1),
+             "no_gt": train_task(pcfg, sd, no_gt, 2)}
+    spawned = SpawnedRanks(tasks, WORLD, str(tmp_path_factory.mktemp("train_ranks")))
+    try:
+        yield dict(spawned=spawned, tasks=tasks)
+    finally:
+        spawned.ranks.stop()
+
+
+@pytest.fixture(scope="module")
+def two_ranks(two_ranks_started):
+    out = two_ranks_started["spawned"].results()
+    tasks = two_ranks_started["tasks"]
+    return dict({k: [r[k] for r in out] for k in tasks}, no_gt_batch=tasks["no_gt"]["batch"])
+
+
+@pytest.fixture(scope="module")
+def supervised(supervised_inputs, two_ranks_started):
     cfg, variables, nb = (supervised_inputs[k] for k in ("cfg", "variables", "nb"))
     jm = JaxGeoFormer(JaxModelConfig.from_cfg(cfg))
     crit = JaxInstSetCriterion(cfg)
@@ -296,3 +309,65 @@ def test_card_step_matches_cpu():
 
     res = chip_smoke.train_small_reference(torch, cfg_mod, Engine, synthetic_batch)
     assert all(res["kernels_equal_to_cpu_run"].values())
+
+
+def train_task(pcfg, sd, batch, epoch, support=None, few_shot=False):
+    """A ``train`` task of tests/torch_dist_worker.py."""
+    return {"task": "train", "cfg": {k: v for k, v in pcfg.to_dict().items() if k != "config"},
+            "sd": sd, "batch": batch, "epoch": epoch, "support": support, "few_shot": few_shot}
+
+
+def assert_ranks_equal(results):
+    """Every rank applied the same gradient and holds the same model."""
+    first = results[0]
+    for r in results[1:]:
+        assert r["loss_dict"] == first["loss_dict"]
+        for k in first["grads"]:
+            assert torch.equal(r["grads"][k], first["grads"][k]), k
+        for k in first["state"]:
+            assert torch.equal(r["state"][k], first["state"][k]), k
+
+
+def test_two_rank_full_phase_step(supervised, two_ranks):
+    """Full phase on two ranks against the JAX step on the whole batch."""
+    loss, ld, stats, grads_full = (supervised["ref"][i] for i in range(4))
+    got = two_ranks["full"]
+    assert_ranks_equal(got)
+    assert_close(got[0]["loss"], loss, TOL, "loss")
+    assert set(got[0]["loss_dict"]) == set(ld)
+    assert got[0]["loss_dict"]["num_gt"] == float(ld["num_gt"]) > 0
+    for k in ld:
+        assert_close(got[0]["loss_dict"][k], ld[k], TOL, k)
+    assert_grads(got[0]["grads"], grads_full)
+    assert_stats(got[0]["state"], stats)
+
+
+def test_two_rank_prepare_phase_step(supervised, two_ranks):
+    """Prepare phase on two ranks: the semantic CE over the global batch."""
+    ld, stats, grads_sem = supervised["ref"][1], supervised["ref"][2], supervised["ref"][4]
+    got = two_ranks["prepare"]
+    assert_ranks_equal(got)
+    assert set(got[0]["loss_dict"]) == {"sem_loss", "loss"}
+    assert_close(got[0]["loss"], ld["sem_loss"], TOL, "sem_loss")
+    assert_grads(got[0]["grads"], grads_sem)
+    assert_stats(got[0]["state"], stats, only=("backbone", "semantic"))
+
+
+def test_two_rank_step_with_a_rank_without_instances(supervised_inputs, two_ranks, port_packs):
+    """A rank whose scene has no gt instance joins every collective of the
+    step (no deadlock) and the step equals the one-process step."""
+    engine = Engine(supervised_inputs["pcfg"], device="cpu", state_dict=supervised_inputs["sd"])
+    loss, ld, grads = port_step(engine, two_ranks["no_gt_batch"], epoch=2)
+    got = two_ranks["no_gt"]
+    assert_ranks_equal(got)
+    assert got[0]["loss_dict"]["num_gt"] == ld["num_gt"] > 0
+    assert_close(got[0]["loss"], loss, TOL, "loss")
+    for k in ld:
+        assert_close(got[0]["loss_dict"][k], ld[k], TOL, k)
+    assert set(got[0]["grads"]) == set(grads)
+    for k, g in grads.items():
+        assert_close(got[0]["grads"][k].numpy(), g.numpy(), TOL, k)
+    want = engine.model.state_dict()
+    for k, v in got[0]["state"].items():
+        if k.rsplit(".", 1)[-1] in ("mean", "var"):
+            assert_close(v.numpy(), want[k].numpy(), STATS_TOL, k)

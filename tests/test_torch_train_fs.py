@@ -12,7 +12,9 @@ its gradients and the BN statistics after the forward; the port runs
 ``Engine.train_step`` with the support batch.
 
 The frozen backbone's step is a prepare-phase (``semantic_only``) program
-of its own. Tolerances: the loss, each loss term and every gradient leaf within
+of its own. The few-shot step also runs on two ``gloo`` ranks, one episode
+a rank (tests/torch_dist_worker.py, spawned once), against the same JAX
+outputs at the same tolerances. Tolerances: the loss, each loss term and every gradient leaf within
 1e-4 x max(1, |ref|inf); a frozen module's JAX gradient exactly 0 (its port
 parameters take none); BN running statistics within 1e-5, the frozen
 modules' left exactly as they were.
@@ -46,7 +48,11 @@ from test_torch_train import (
     supervised_inputs,
     train_batch,
     TOL,
+    WORLD,
+    assert_ranks_equal,
+    train_task,
 )
+from torch_dist_worker import SpawnedRanks
 import geoformer_tpu_torch.models.geoformer as gf
 
 FS_FROZEN = ["input_conv", "unet", "output_layer", "semantic", "semantic_linear",
@@ -69,7 +75,9 @@ def episode(cfg):
 
 
 @pytest.fixture(scope="module")
-def few_shot(tiny_cfg):
+def few_shot(tiny_cfg, tmp_path_factory):
+    """The JAX step's outputs, with the two-rank step started before its
+    compile (``ranks``; ``ranks.results()`` waits for it)."""
     cfg = tiny_cfg.replace(tpu_unet_depth=2, tpu_brick_occupancy=0, dec_dropout=0.0,
                            prepare_epochs=0, fix_module=FS_FROZEN, negative_ratio=2)
     query, support = episode(cfg)
@@ -77,6 +85,9 @@ def few_shot(tiny_cfg):
     model = GeoFormerFS(ModelConfig.from_cfg(pcfg))
     sd = perturbed_weights(model)
     model.load_state_dict(sd)
+    spawned = SpawnedRanks({"step": train_task(pcfg, sd, query, 1, support=support,
+                                               few_shot=True)},
+                           WORLD, str(tmp_path_factory.mktemp("fs_ranks")))
     variables = to_jax_variables(model)
     jm = JaxGeoFormerFS(JaxModelConfig.from_cfg(cfg))
     crit = JaxFSInstSetCriterion(cfg)
@@ -97,7 +108,10 @@ def few_shot(tiny_cfg):
         ref = jax.tree_util.tree_map(np.asarray, jit_default(
             step, variables["params"], variables["batch_stats"], variables["constants"],
             as_jax(support), as_jax(query)))
-    return dict(pcfg=pcfg, query=query, support=support, sd=sd, ref=ref)
+    try:
+        yield dict(pcfg=pcfg, query=query, support=support, sd=sd, ref=ref, ranks=spawned)
+    finally:
+        spawned.ranks.stop()
 
 
 def test_few_shot_step(few_shot, monkeypatch):
@@ -120,6 +134,22 @@ def test_few_shot_step(few_shot, monkeypatch):
     for k, v in engine.model.state_dict().items():
         if k.rsplit(".", 1)[-1] in ("mean", "var") and k.split(".")[0] not in trainable:
             assert torch.equal(v, few_shot["sd"][k]), k
+
+
+def test_two_rank_few_shot_step(few_shot):
+    """The few-shot step on two ranks (query and support batches sharded)
+    against the JAX step on the whole episode batch."""
+    (loss, (ld, stats)), grads = few_shot["ref"]
+    got = [r["step"] for r in few_shot["ranks"].results()]
+    assert_ranks_equal(got)
+    assert_close(got[0]["loss"], loss, TOL, "loss")
+    assert set(got[0]["loss_dict"]) == set(ld)
+    assert got[0]["loss_dict"]["num_gt"] == float(ld["num_gt"]) > 0
+    for k in ld:
+        assert_close(got[0]["loss_dict"][k], ld[k], TOL, k)
+    frozen = [k for k in from_jax_variables({"params": grads}) if k not in got[0]["grads"]]
+    assert_grads(got[0]["grads"], grads, frozen)
+    assert_stats(got[0]["state"], stats)
 
 
 def test_frozen_backbone_prepare_step(supervised_inputs):

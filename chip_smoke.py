@@ -78,7 +78,23 @@ directory that lacks the port's package. It
    ranks against one process: every scene's predictions and the AP table
    equal) and, beside it, ``ddp_nccl`` (cli.train at a world of 1 under
    nccl for one prepare step);
-12. prints a ``kernels`` line with each kernel's launches on its paths (K2's
+12. model parallelism (the JAX ``model`` mesh axis: each scene's queries
+   split over the M = 2 ranks of a model group), with data x model ranks of
+   this script on the one card over ``gloo``: ``mp_reference`` (the step of
+   10 at 1x2 and 2x2 ranks against the one-process step of 11: float64
+   within 1e-9, each rank's geodesic table bit-equal to its columns of the
+   one-process table, the same matches, float32 as 11 holds it, the ranks
+   bit-equal after two steps, and no collective moving an activation as
+   large as one scene's [F, Q] table), ``mp_train`` (two full-phase steps of
+   Engine.train_step at config/geoformer_scannet.yaml's widths, 2x2 ranks,
+   a global batch of 4: each rank's s/step, peak memory, stage ms, counters
+   and K1/K2 launches; the geodesic solve alone at Q and at Q/2 seeds and a
+   one-process step on one data index's scenes beside them) and ``mp_eval``
+   (Engine.eval_batch on the two 250,000-point val scenes at 1x2 against one
+   process at B = 2 and at B = 1, scene 0 compared stage by stage: integer
+   stages equal, float stages within the bound that the B = 1 / B = 2
+   distance sets, see MP_EVAL_RATIO);
+13. prints a ``kernels`` line with each kernel's launches on its paths (K2's
    by shape: every counted run logs the shape of each K2 call, and a row's
    ``launches`` are those made at its shape), its times and its bound, the
    card's line, and last
@@ -1024,8 +1040,10 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
     """``steps`` full-phase Engine.train_steps of train_small_reference's
     inputs at ``dtype`` on the card (on this rank's rows under ``mesh``),
     with its injected draws and no dropout: the first step's loss, matched
-    instances, Hungarian matches, applied (reduced) gradients and BN
-    statistics after it, and a digest of the model after the last step.
+    instances, Hungarian matches, geodesic table (this rank's query
+    columns), the largest tensor of each collective call site, applied
+    (reduced) gradients and BN statistics after it, and a digest of the
+    model after the last step, with K1's and K2's launches over the steps.
     ``matches`` (this process's rows) replace the first step's own, which
     are still reported: a float32 run takes float64's, so that a near-tie
     that the auction breaks the other way in float32 does not stand in for
@@ -1043,6 +1061,7 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
         select_min_k_cand_plain,
     )
     from geoformer_tpu_torch.models.unet import BottleneckTransformer
+    from geoformer_tpu_torch.parallel.mesh import TRAFFIC
 
     engine = Engine(inputs["cfg"], device="cuda", state_dict=inputs["sd"], mesh=mesh)
     state = engine.init_state()
@@ -1072,6 +1091,16 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
         return out
 
     engine.criterion._assign = keeping
+    geodesic = engine.model.forward_geodesic
+
+    def solving(*a, **kw):
+        out = geodesic(*a, **kw)
+        first.setdefault("geo", out[0].cpu())
+        return out
+
+    engine.model.forward_geodesic = solving
+    launches0 = (select_min_k_cand.launches, fps.launches)
+    TRAFFIC.reset()
     real_pack = gf.random_pack_by_mask
     gf.random_pack_by_mask = injected_pack(torch)
     if dtype == torch.float64:
@@ -1081,6 +1110,7 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
         for i in range(steps):
             loss, ld, _ = engine.train_step(batch, 1, gen)
             if i == 0:
+                first["traffic"] = dict(TRAFFIC.largest)
                 first.update(loss=float(loss), num_gt=float(ld["num_gt"]),
                              terms={k: float(v) for k, v in ld.items()}, stats={
                     k: v.detach().cpu().double() for k, v in engine.model.state_dict().items()
@@ -1088,7 +1118,9 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
     finally:
         gf.random_pack_by_mask = real_pack
         ops_rg.select_min_k_cand, ops_fps.fps = select_min_k_cand, fps
-    return dict(first, digest=state_digest(engine.model))
+    return dict(first, digest=state_digest(engine.model),
+                launches={"knn_select": select_min_k_cand.launches - launches0[0],
+                          "fps": fps.launches - launches0[1]})
 
 
 def ddp_reference_rank(torch, work: str) -> None:
@@ -1180,7 +1212,7 @@ def ddp_reference(torch, cfg_mod, Engine, synthetic_batch, here) -> dict:
         fail(f"ddp_reference: the float32 step on two ranks is further from float64 in {over}")
     if any(len(set(g[dt]["digest"] for g in got)) != 1 for dt in ("float64", "float32")):
         fail("ddp_reference: the ranks' models differ after two steps")
-    return res
+    return {"res": res, "inputs": inputs, "ref": ref}
 
 
 def link_dataset(here, name: str, src_base: str, train: list, val: list) -> str:
@@ -1412,11 +1444,568 @@ def ddp_eval_and_nccl(torch, cfg_mod, here, smoke, train, ddp) -> dict:
     return {"eval": res, "nccl": nres, "rank_launches": [g["launches"] for g in got]}
 
 
+# ---------------- model parallelism (the JAX ``model`` mesh axis) ----------------
+
+# the model axis of the model-parallel phases, and mp_reference's layouts
+# (data x model ranks, all on the one card over gloo)
+MP = 2
+MP_LAYOUTS = ((1, MP), (2, MP))
+# mp_train: __graft_entry__.py's dp x mp dry-run layout, at its global batch
+# of two scenes a data index, two full-phase steps
+MP_TRAIN_LAYOUT = (2, MP)
+MP_TRAIN_BATCH = 4
+MP_TRAIN_STEPS = 2
+# mp_eval's gate on the ranks' float stages against one process at the same
+# batch: at most MP_EVAL_RATIO x how far the card's B = 1 forward is from its
+# B = 2 forward at that stage, or MP_EVAL_TOL (PERF.md)
+MP_EVAL_RATIO = 8.0
+MP_EVAL_TOL = 1e-5
+MP_EVAL_MASK_ENTRIES = 16
+
+
+def mp_ranks(torch, here, phase: str, layout, payload: dict):
+    """The data x model ranks of an ``mp_*`` phase (this script's ``mp``
+    rank task), started with ``payload`` saved for them -> (work dir,
+    Ranks)."""
+    work = fresh_dir(os.path.join(here, "build", "smoke_mp", f"{phase}_{layout[0]}x{layout[1]}"))
+    torch.save(dict(payload, phase=phase, model_parallel=layout[1]),
+               os.path.join(work, "spec.pt"))
+    return work, start_ranks(here, "mp", work, world=layout[0] * layout[1])
+
+
+def mp_results(torch, work: str, world: int) -> list:
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def wait_all(groups) -> None:
+    """Wait for every rank group; any failure stops them all."""
+    try:
+        for ranks in groups:
+            ranks.wait()
+    finally:
+        for ranks in groups:
+            ranks.stop()
+
+
+def mp_rank(torch, work: str) -> None:
+    """A rank of an ``mp_*`` phase: its mesh is make_mesh(model_parallel=M)
+    under gloo; its results go to rank{r}.pt."""
+    from geoformer_tpu_torch.parallel.dist import process_group
+    from geoformer_tpu_torch.parallel.mesh import make_mesh
+
+    spec = torch.load(os.path.join(work, "spec.pt"), weights_only=False)
+    with process_group("gloo"):
+        mesh = make_mesh(model_parallel=spec["model_parallel"])
+        run = {"mp_reference": mp_reference_rank, "mp_train": mp_train_rank,
+               "mp_eval": mp_eval_rank}[spec["phase"]]
+        out = run(torch, spec, mesh)
+        torch.save(dict(out, rank=mesh.rank, data_rank=mesh.data_rank,
+                        model_rank=mesh.model_rank, device=str(mesh.device)),
+                   os.path.join(work, f"rank{mesh.rank}.pt"))
+
+
+def kernels_match_plain(torch, knn_log, fps_log) -> dict:
+    """K1 and K2 against their plain versions on the first call of each
+    shape that ``knn_log`` / ``fps_log`` (CallLogs with ``keep``) held:
+    exact equality, False where no call was held."""
+    from geoformer_tpu_torch.kernels.fps import fps, fps_plain
+    from geoformer_tpu_torch.kernels.knn_select import (
+        select_min_k_cand,
+        select_min_k_cand_plain,
+    )
+
+    knn, pts = list(knn_log.first.values()), list(fps_log.first.values())
+    return {"knn_select": bool(knn) and all(
+                all(torch.equal(bits(torch, a), bits(torch, b)) for a, b in zip(
+                    select_min_k_cand(*c), select_min_k_cand_plain(*c))) for c in knn),
+            "fps": bool(pts) and all(torch.equal(fps(*c), fps_plain(*c)) for c in pts)}
+
+
+def held_against_plain(torch, run) -> dict:
+    """``run()`` with K1's and K2's calls logged (the first of each shape
+    kept), outside any counted or timed run: their inputs stay on the card
+    -> ``kernels_match_plain`` on them."""
+    from geoformer_tpu_torch.kernels.fps import fps
+    from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand
+
+    logs = select_min_k_cand.capture, fps.capture = CallLog(keep=True), CallLog(keep=True)
+    try:
+        run()
+    finally:
+        select_min_k_cand.capture = fps.capture = None
+    return kernels_match_plain(torch, *logs)
+
+
+def k12_launches(reset: bool = False) -> dict:
+    """K1's and K2's launch counters (set to 0 first with ``reset``)."""
+    from geoformer_tpu_torch.kernels.fps import fps
+    from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand
+
+    if reset:
+        select_min_k_cand.launches = fps.launches = 0
+    return {"knn_select": select_min_k_cand.launches, "fps": fps.launches}
+
+
+def activation_bytes(traffic: dict) -> int:
+    """The largest tensor a step's collectives moved, the gradient's
+    all-reduce (a parameter-sized buffer in any data-parallel step) aside."""
+    return max((v for k, v in traffic.items() if k != "gradients"), default=0)
+
+
+def mp_reference_rank(torch, spec, mesh) -> dict:
+    from geoformer_tpu_torch.engine import Engine
+
+    out = {"float64": ddp_steps(torch, Engine, spec["inputs"], torch.float64, mesh)}
+    out["float32"] = ddp_steps(torch, Engine, spec["inputs"], torch.float32, mesh,
+                               matches=out["float64"]["matches"])
+    return out
+
+
+def mp_reference(torch, here, ddp) -> dict:
+    """ddp_reference's step (train_small_reference's inputs: the published
+    U-Net depth, B = 2) on the MP_LAYOUTS data x model meshes, each scene's
+    queries split over MP model ranks, against ddp_reference's one-process
+    steps on the card. Float64: loss, every applied gradient and every BN
+    statistic within SMALL_REF_TOL64 x max(1, |ref|inf), the matched
+    instances and each scene's matches equal, and each rank's geodesic table
+    bit-equal to its columns of the one-process table (the -1 pattern
+    included; float32's too). Float32: module by module no further from the
+    float64 step than SMALL_REF_RATIO times the one-process float32 step (as
+    ddp_reference). Both: ranks bit-equal after two steps; the largest
+    activation any collective moved below one scene's [F, Q] table."""
+    t0 = time.time()
+    inputs, ref = ddp["inputs"], ddp["ref"]
+    cfg = inputs["cfg"]
+    groups = {layout: mp_ranks(torch, here, "mp_reference", layout, {"inputs": inputs})
+              for layout in MP_LAYOUTS}
+    wait_all([ranks for _, ranks in groups.values()])
+    r64, r32 = ref["float64"], ref["float32"]
+    res = {"phase": "mp_reference", "backend": "gloo", "batch": 2,
+           "unet_depth": SMALL_REF_DEPTH, "points": cfg.tpu_max_points,
+           "queries": cfg.n_query_points, "tol64": SMALL_REF_TOL64, "layouts": {}}
+    failures = []
+    for (n_data, m), (work, _) in groups.items():
+        got = mp_results(torch, work, n_data * m)
+        name = f"{n_data}x{m}"
+        g64 = got[0]["float64"]
+        errs = {"grads": grad_errors(g64["grads"], r64["grads"]),
+                "stats": grad_errors(g64["stats"], r64["stats"])}
+        worst = {k: max(e.items(), key=lambda kv: kv[1]) for k, e in errs.items()}
+        loss_err = abs(g64["loss"] - r64["loss"]) / max(1.0, abs(r64["loss"]))
+        e2 = grad_errors(got[0]["float32"]["grads"], r64["grads"])
+        e1 = grad_errors(r32["grads"], r64["grads"])
+        by_module = {}
+        for k in r64["grads"]:
+            pair = by_module.setdefault(k.split(".")[0], [0.0, 0.0])
+            pair[0], pair[1] = max(pair[0], e2[k]), max(pair[1], e1[k])
+        over = sorted(mod for mod, (mp_err, one) in by_module.items()
+                      if mp_err > max(SMALL_REF_TOL, SMALL_REF_RATIO * one))
+        b = 2 // n_data
+        per = cfg.n_query_points // m
+        geo_equal, matches_equal = {}, {}
+        for dt, one in (("float64", r64), ("float32", r32)):
+            geo_equal[dt] = all(torch.equal(
+                g[dt]["geo"], one["geo"][g["data_rank"] * b:(g["data_rank"] + 1) * b, :,
+                                         g["model_rank"] * per:(g["model_rank"] + 1) * per])
+                for g in got)
+            matches_equal[dt] = all(torch.equal(
+                g[dt]["matches"], r64["matches"][g["data_rank"] * b:(g["data_rank"] + 1) * b])
+                for g in got)
+        table = cfg.tpu_max_fg_points * cfg.n_query_points
+        moved = {dt: max(activation_bytes(g[dt]["traffic"]) for g in got)
+                 for dt in ("float64", "float32")}
+        digests = {dt: [g[dt]["digest"][:16] for g in got] for dt in ("float64", "float32")}
+        res["layouts"][name] = {
+            "world": n_data * m, "rank_devices": [g["device"] for g in got],
+            "loss": g64["loss"], "f64_loss_rel_err": loss_err,
+            "num_gt": [r64["num_gt"], g64["num_gt"]],
+            "f64_worst": {k: list(v) for k, v in worst.items()},
+            "geo_bit_equal": geo_equal, "matches_equal_to_f64": matches_equal,
+            "f32_by_module": by_module, "f32_modules_over": over,
+            "largest_activation_bytes": moved,
+            "table_bytes": {"float64": 8 * table, "float32": 4 * table},
+            "traffic_f32_rank0": got[0]["float32"]["traffic"],
+            "rank_digests_after_2_steps": digests,
+            "launches_f32": [g["float32"]["launches"] for g in got]}
+        if (loss_err > SMALL_REF_TOL64 or max(v[1] for v in worst.values()) > SMALL_REF_TOL64
+                or g64["num_gt"] != r64["num_gt"] or not geo_equal["float64"]
+                or not matches_equal["float64"]):
+            failures.append(f"{name}: the float64 step differs from the one-process step")
+        if over:
+            failures.append(f"{name}: float32 further from float64 in {over}")
+        if any(len(set(v)) != 1 for v in digests.values()):
+            failures.append(f"{name}: the ranks' models differ after two steps")
+        if moved["float64"] >= 8 * table or moved["float32"] >= 4 * table:
+            failures.append(f"{name}: a collective moved a table-sized activation: {moved}")
+        if any(g["float32"]["launches"][k] <= 0 for g in got for k in ("knn_select", "fps")):
+            failures.append(f"{name}: a rank launched no K1 or K2")
+    res["seconds"] = time.time() - t0
+    emit(res)
+    if failures:
+        fail(f"mp_reference: {failures}")
+    return res
+
+
+def mp_train_rank(torch, spec, mesh) -> dict:
+    """MP_TRAIN_STEPS full-phase Engine.train_steps at the published widths
+    on this rank's scenes and queries: s a step, peak memory, the second
+    step's stage ms, capacity counters, K1/K2 launches, the collectives'
+    largest tensors and a digest of the model; then K1 and K2 held against
+    their plain versions on an eval forward of the same scenes."""
+    from geoformer_tpu_torch.cli.train import state_digest
+    from geoformer_tpu_torch.engine import Engine
+    from geoformer_tpu_torch.parallel.mesh import TRAFFIC
+
+    # dropout draws from the process's generator: alike within a model
+    # group (the ranks of one data index run the same backbone)
+    torch.manual_seed(1000 + mesh.data_rank)
+    engine = Engine(spec["cfg"], state_dict=spec["sd"], mesh=mesh)
+    engine.init_state()
+    gen = torch.Generator(device=engine.device).manual_seed(0)
+    epoch = spec["cfg"].prepare_epochs + 1
+    k12_launches(reset=True)
+    TRAFFIC.reset()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, counters = [], [], {}
+    for i in range(MP_TRAIN_STEPS):
+        if i == MP_TRAIN_STEPS - 1:
+            engine.model.stage_ms = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, ld, _ = engine.train_step(spec["batch"], epoch, gen)
+        losses.append({k: float(v) for k, v in ld.items()})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        for k, v in engine.last_voxel_stats.items():
+            if k in CAPACITY_KEYS:
+                counters[k] = max(counters.get(k, 0), int(v.sum()))
+    res = {"launches": k12_launches(), "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "digest": state_digest(engine.model), "traffic": dict(TRAFFIC.largest),
+           "traffic_bytes": dict(TRAFFIC.bytes)}
+    # K1 and K2 on this rank's tables, in an eval forward at the same shapes
+    res["kernels_equal_plain"] = held_against_plain(torch, lambda: engine.eval_batch(spec["batch"]))
+    return {**res, "s_per_step": step_s, "losses": losses, "stage_ms": engine.model.stage_ms,
+            "capacity_counters": counters,
+            "state": {k: v.detach().cpu() for k, v in engine.model.state_dict().items()}}
+
+
+def geodesic_ms(torch, engine, batch, splits=(1, MP), reps: int = 5) -> dict:
+    """Host-clock ms of a training-mode radius graph + geodesic solve on
+    ``batch`` at the seeds of one rank of a model axis of each of
+    ``splits`` (a mesh with no process group: no collective), the splits
+    alternated, ``reps`` times each after one warm-up round."""
+    from geoformer_tpu_torch.parallel.mesh import Mesh, set_mesh
+
+    with torch.no_grad():
+        tb = engine.to_device(batch)
+        feats, _, preds, _ = engine.model.forward_backbone(tb)
+        fg_idx, fg_valid = engine.model.foreground_pack(preds, tb["point_mask"])
+        gather = lambda t: torch.gather(t, 1, fg_idx[..., None].expand(-1, -1, t.shape[-1]))
+        fg_locs = gather(tb["points"])
+        _, _, inds, valid = engine.model.forward_aggregator(fg_locs, gather(feats), fg_valid)
+        res = {m: {"ms": []} for m in splits}
+        for i in range(reps + 1):
+            for m in splits:
+                with set_mesh(Mesh(0, m, engine.device, model_parallel=m)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    geo = engine.model.forward_geodesic(fg_locs, fg_valid, inds, valid,
+                                                        train=True)[0]
+                    torch.cuda.synchronize()
+                if i:
+                    res[m]["ms"].append((time.perf_counter() - t) * 1e3)
+                res[m]["table_shape"] = list(geo.shape)
+    for r in res.values():
+        r["median_ms"] = sorted(r["ms"])[len(r["ms"]) // 2]
+    return {"Q" if m == 1 else f"Q/{m}": r for m, r in res.items()}
+
+
+def mp_train(torch, cfg_mod, Engine, synthetic_batch, here) -> dict:
+    """``mp_train``: MP_TRAIN_STEPS full-phase steps of Engine.train_step at
+    config/geoformer_scannet.yaml's widths (bf16 sparse convs and remat as
+    published) on MP_TRAIN_LAYOUT data x model gloo ranks, a global batch of
+    MP_TRAIN_BATCH synthetic 250,000-point scans, seeded weights with the
+    foreground class biased on. Per rank: s a step, peak memory, stage ms,
+    capacity counters (0), K1/K2 launches (> 0), the largest activation a
+    collective moved (below one scene's [F, Q] table) and the model's digest
+    (equal on every rank). Then, in this process without collectives, one
+    data index's radius graph + geodesic solve at Q and at Q/MP seeds, and
+    one one-process step on its scenes (s, peak memory)."""
+    from geoformer_tpu_torch.models.geoformer import GeoFormer, ModelConfig
+    from geoformer_tpu_torch.weights import random_state_dict
+
+    t0 = time.time()
+    cfg = cfg_mod.load_config(os.path.join(here, "config", "geoformer_scannet.yaml"),
+                              batch_size=MP_TRAIN_BATCH)
+    sd = random_state_dict(GeoFormer(ModelConfig.from_cfg(cfg)), 0)
+    sd["semantic.Dense_2.bias"][4] += FG_BIAS
+    batch = synthetic_batch(cfg, MP_TRAIN_BATCH, seed=21)
+    n_data, m = MP_TRAIN_LAYOUT
+    torch.cuda.empty_cache()
+    work, ranks = mp_ranks(torch, here, "mp_train", MP_TRAIN_LAYOUT,
+                           {"cfg": cfg, "sd": sd, "batch": batch})
+    wait_all([ranks])
+    got = mp_results(torch, work, n_data * m)
+    # one data index's scenes in this process: the geodesic solve at Q and
+    # at Q/MP seeds, and one step at Q
+    rows = {k: v[:MP_TRAIN_BATCH // n_data] for k, v in batch.items()}
+    engine = Engine(cfg.replace(batch_size=MP_TRAIN_BATCH // n_data), state_dict=sd)
+    geo = geodesic_ms(torch, engine, rows)
+    engine.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=engine.device).manual_seed(0)
+    one_s = []
+    for _ in range(MP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.train_step(rows, cfg.prepare_epochs + 1, gen)
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t)
+    one_mem = torch.cuda.max_memory_allocated() / 1e9
+    del engine
+    torch.cuda.empty_cache()
+    fg, q = cfg.tpu_max_fg_points, cfg.n_query_points
+    res = {"phase": "mp_train", "layout": f"{n_data}x{m}", "backend": "gloo",
+           "global_batch": MP_TRAIN_BATCH, "config": "config/geoformer_scannet.yaml",
+           "ranks": [{k: g[k] for k in ("rank", "data_rank", "model_rank", "device",
+                                        "s_per_step", "max_memory_gb", "capacity_counters",
+                                        "launches", "kernels_equal_plain", "stage_ms")}
+                     | {"geodesic_ms": g["stage_ms"].get("geodesic"),
+                        "largest_activation_bytes": activation_bytes(g["traffic"]),
+                        "loss": g["losses"][0]["loss"], "digest": g["digest"][:16]}
+                     for g in got],
+           "traffic_rank0": got[0]["traffic"], "table_bytes": 4 * fg * q,
+           "traffic_bytes_rank0_two_steps": got[0]["traffic_bytes"],
+           "one_process_same_scenes": {"s_per_step": one_s, "max_memory_gb": one_mem,
+                                       "geodesic_alone": geo},
+           "seconds": time.time() - t0}
+    emit(res)
+    if len({g["digest"] for g in got}) != 1:
+        apart = {r: [k for k, v in g["state"].items() if not torch.equal(v, got[0]["state"][k])]
+                 for r, g in enumerate(got)}
+        fail(f"mp_train: the ranks' models differ after the steps: {apart}")
+    if any(g["losses"] != got[0]["losses"] for g in got):
+        fail("mp_train: the ranks report other global losses")
+    if any(any(v for v in g["capacity_counters"].values()) for g in got):
+        fail("mp_train: a capacity counter is not 0")
+    if any(g["launches"][k] <= 0 for g in got for k in ("knn_select", "fps")):
+        fail("mp_train: a rank launched no K1 or K2")
+    if not all(v for g in got for v in g["kernels_equal_plain"].values()):
+        fail("mp_train: K1 or K2 differs from its plain version on a rank's calls")
+    if any(activation_bytes(g["traffic"]) >= 4 * fg * q for g in got):
+        fail("mp_train: a collective moved a table-sized activation")
+    if not all(math.isfinite(v) for g in got for v in g["losses"][0].values()):
+        fail("mp_train: a loss is not finite")
+    return {"res": res, "rank_launches": [g["launches"] for g in got]}
+
+
+class StageCapture:
+    """Scene 0's output of each forward stage, read off the model while the
+    block runs (on the CPU): semantic scores, fg indices and validity,
+    context indices and validity, the kNN ids of the radius graph, the
+    geodesic table (this rank's query columns), the last decoder layer
+    (this rank's query rows)."""
+
+    STAGES = ("forward_backbone", "foreground_pack", "forward_aggregator", "forward_geodesic",
+              "run_decoder")
+
+    def __init__(self, model):
+        self.model, self.out = model, {}
+
+    def __enter__(self):
+        import geoformer_tpu_torch.models.geoformer as gf
+
+        out = self.out
+        keep = {"forward_backbone": lambda r: {"semantic_scores": r[1][0]},
+                "foreground_pack": lambda r: {"fg_idx": r[0][0], "fg_valid": r[1][0]},
+                "forward_aggregator": lambda r: {"context_inds": r[2][0],
+                                                 "context_valid": r[3][0]},
+                "forward_geodesic": lambda r: {"geo": r[0][0]},
+                "run_decoder": lambda r: {"decoder": r[0][-1, 0]}}
+
+        def wrap(fn, pick):
+            def run(*a, **kw):
+                r = fn(*a, **kw)
+                out.update({k: v.detach().cpu() for k, v in pick(r).items()})
+                return r
+            return run
+
+        for name in self.STAGES:
+            setattr(self.model, name, wrap(getattr(self.model, name), keep[name]))
+        self.knn = gf.radius_knn
+        gf.radius_knn = wrap(self.knn, lambda r: {"knn_ids": r[1][0]})
+        return out
+
+    def __exit__(self, *exc):
+        import geoformer_tpu_torch.models.geoformer as gf
+
+        for name in self.STAGES:
+            delattr(self.model, name)
+        gf.radius_knn = self.knn
+
+
+def eval_capture(torch, engine, batch) -> dict:
+    """engine.eval_batch with scene 0's stages captured (StageCapture), its
+    mask and class logits, and its proposals and NMS where this rank
+    returns them."""
+    with StageCapture(engine.model) as cap:
+        out = engine.eval_batch(batch)
+    cap["mask_logits"] = out["mask_logits"][-1, 0].cpu()
+    cap["cls_logits"] = out["cls_logits"][-1, 0].cpu()
+    if "proposals" in out:
+        cap["proposals"] = {k: v[0].cpu() for k, v in out["proposals"].items()}
+        cap["nms_keep"] = out["nms"]["keep"][0].cpu()
+    return cap
+
+
+def mp_eval_rank(torch, spec, mesh) -> dict:
+    """Engine.eval_batch on the global batch under the data x model mesh,
+    counted (K1/K2 launches, peak memory) and timed, then once more with
+    scene 0's stages captured."""
+    from geoformer_tpu_torch.engine import Engine
+
+    engine = Engine(spec["cfg"], state_dict=spec["sd"], mesh=mesh)
+    k12_launches(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = engine.eval_batch(spec["batch"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    res = {"launches": k12_launches(), "ms_per_scene": ms / len(spec["batch"]["points"]),
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "capacity_counters": {k: int(v.sum()) for k, v in out["voxel_stats"].items()
+                                 if k in CAPACITY_KEYS}}
+    del out
+    cap = {}
+    res["kernels_equal_plain"] = held_against_plain(
+        torch, lambda: cap.update(eval_capture(torch, engine, spec["batch"])))
+    return dict(res, capture=cap)
+
+
+def stage_diffs(torch, a: dict, b: dict) -> dict:
+    """Stage by stage: integer stages equal (bool), float stages' max abs
+    difference, the proposals' keep/classes equal and mask entries apart."""
+    out = {}
+    for k in ("fg_idx", "fg_valid", "context_inds", "context_valid", "knn_ids"):
+        out[k] = bool(torch.equal(a[k], b[k]))
+    out["geo_unreached_equal"] = bool(torch.equal(a["geo"] < 0, b["geo"] < 0))
+    for k in ("semantic_scores", "geo", "decoder", "cls_logits", "mask_logits"):
+        out[k] = float((a[k].double() - b[k].double()).abs().max())
+    pa, pb = a.get("proposals"), b.get("proposals")
+    if pa is not None and pb is not None:
+        out["proposals"] = {"keep": bool(torch.equal(pa["keep"], pb["keep"])),
+                            "classes": bool(torch.equal(pa["classes"], pb["classes"])),
+                            "scores": float((pa["scores"] - pb["scores"]).abs().max()),
+                            "mask_entries_apart": int((pa["masks"] != pb["masks"]).sum()),
+                            "nms_keep": bool(torch.equal(a["nms_keep"], b["nms_keep"]))}
+    return out
+
+
+def gemm_rows_probe(torch) -> dict:
+    """Whether a float32 matrix product's rows depend on how many rows are
+    multiplied with them on this card: x[:n] @ w against (x @ w)[:n] for the
+    decoder's and the sparse conv's widths, bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    for n, k, c in ((128, 256, 256), (256, 256, 256), (65536, 16, 16), (131072, 32, 32)):
+        x = torch.randn(2 * n, k, device="cuda", generator=g)
+        w = torch.randn(k, c, device="cuda", generator=g)
+        res[f"{n}x{k}x{c}"] = bool(torch.equal((x[:n] @ w), (x @ w)[:n]))
+    return res
+
+
+def mp_eval(torch, here, smoke) -> dict:
+    """``mp_eval``: Engine.eval_batch on the two 250,000-point val scenes of
+    the smoke's dataset (config/test_geoformer_scannet.yaml, its seeded
+    checkpoint with the class head's class 4 raised by FG_BIAS so that
+    proposals exist) at 1xMP gloo ranks, counted and timed per rank, against
+    one process at B = 2 (the ranks' batch) and at B = 1 (scene 0 alone):
+    scene 0 compared stage by stage (StageCapture) between B = 1 and B = 2
+    and between one process and the ranks (Q against Q/MP queries a rank).
+    The integer stages must be equal and the geodesic table's -1 pattern
+    too; the ranks' float stages and proposal scores no further from one
+    process at B = 2 than MP_EVAL_RATIO x the distance of B = 1 from B = 2
+    (or MP_EVAL_TOL), their proposals' keep, classes and NMS equal, and
+    their proposal masks apart in no more entries than MP_EVAL_RATIO x
+    those of B = 1 and B = 2 (or MP_EVAL_MASK_ENTRIES): entries whose
+    sigmoid sits at the 0.5 threshold."""
+    from geoformer_tpu_torch.cli.test import stack_group
+    from geoformer_tpu_torch.data.scannet import InstDataset
+    from geoformer_tpu_torch.engine import Engine
+    from geoformer_tpu_torch.weights import load_jax_checkpoint
+
+    t0 = time.time()
+    cfg = smoke["cfgs"]["test"].replace(test_batch_size=2)
+    sd = load_jax_checkpoint(smoke["paths"]["test"]["ckpt"])
+    sd["detr_sem_head.Dense_2.bias"][4] += FG_BIAS
+    scenes = [b for _, b in InstDataset(cfg, "val").test_batches()]
+    batch = stack_group(scenes, 2)
+    layout = (1, MP)
+    torch.cuda.empty_cache()
+    work, ranks = mp_ranks(torch, here, "mp_eval", layout,
+                           {"cfg": cfg, "sd": sd, "batch": batch})
+    try:  # the one-process forwards run while the ranks start
+        engine = Engine(cfg, state_dict=sd)
+        one = {"b1": eval_capture(torch, engine, scenes[0]),
+               "b2": eval_capture(torch, engine, batch)}
+        del engine
+        ranks.wait()
+    finally:
+        ranks.stop()
+    got = mp_results(torch, work, MP)
+    caps = [g["capture"] for g in got]
+    mp_cap = dict(caps[0], geo=torch.cat([c["geo"] for c in caps], dim=1),
+                  decoder=torch.cat([c["decoder"] for c in caps], dim=0))
+    ranks_agree = all(torch.equal(c[k], caps[0][k]) for c in caps
+                      for k in ("mask_logits", "cls_logits", "fg_idx", "context_inds"))
+    diffs = {"b1_vs_b2": stage_diffs(torch, one["b1"], one["b2"]),
+             "b2_vs_ranks": stage_diffs(torch, one["b2"], mp_cap),
+             "b1_vs_ranks": stage_diffs(torch, one["b1"], mp_cap)}
+    floats = ("semantic_scores", "geo", "decoder", "cls_logits", "mask_logits")
+    bound = {k: max(MP_EVAL_TOL, MP_EVAL_RATIO * diffs["b1_vs_b2"][k]) for k in floats}
+    ints = ("fg_idx", "fg_valid", "context_inds", "context_valid", "knn_ids",
+            "geo_unreached_equal")
+    res = {"phase": "mp_eval", "layout": f"1x{MP}", "backend": "gloo",
+           "config": "config/test_geoformer_scannet.yaml", "scenes": 2,
+           "points": cfg.tpu_max_points, "queries": cfg.n_query_points,
+           "ranks": [{k: g[k] for k in ("rank", "device", "ms_per_scene", "max_memory_gb",
+                                        "launches", "kernels_equal_plain",
+                                        "capacity_counters")} for g in got],
+           "proposals_kept": {k: int(c["proposals"]["keep"].sum()) for k, c in
+                              (("b1", one["b1"]), ("b2", one["b2"]), ("ranks", mp_cap))},
+           "ranks_agree": ranks_agree, "diffs": diffs, "float_bound": bound,
+           "gemm_rows_bit_equal": gemm_rows_probe(torch),
+           "tol": MP_EVAL_TOL, "ratio": MP_EVAL_RATIO, "mask_entries": MP_EVAL_MASK_ENTRIES,
+           "seconds": time.time() - t0}
+    emit(res)
+    d = diffs["b2_vs_ranks"]
+    bad = [k for k in ints if not d[k]] + [k for k in floats if d[k] > bound[k]]
+    p1, p2 = diffs["b1_vs_b2"]["proposals"], d["proposals"]
+    if not (p2["keep"] and p2["classes"] and p2["nms_keep"]) or p2["scores"] > max(
+            MP_EVAL_TOL, MP_EVAL_RATIO * p1["scores"]) or p2["mask_entries_apart"] > max(
+            MP_EVAL_MASK_ENTRIES, MP_EVAL_RATIO * p1["mask_entries_apart"]):
+        bad.append("proposals")
+    if bad or not ranks_agree:
+        fail(f"mp_eval: the ranks differ from one process in {bad or 'their gathered logits'}")
+    if "proposals" in caps[1] or res["proposals_kept"]["b2"] <= 0:
+        fail("mp_eval: expected proposals on model index 0 only, and some kept")
+    if any(g["launches"][k] <= 0 for g in got for k in ("knn_select", "fps")):
+        fail("mp_eval: a rank launched no K1 or K2")
+    if not all(v for g in got for v in g["kernels_equal_plain"].values()):
+        fail("mp_eval: K1 or K2 differs from its plain version on a rank's calls")
+    if any(v for g in got for v in g["capacity_counters"].values()):
+        fail("mp_eval: a capacity counter is not 0")
+    return {"res": res, "rank_launches": [g["launches"] for g in got]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenes", type=int, default=2, help="full-size scenes to run (>= 2)")
     # the data-parallel phases start this script again as their ranks
-    ap.add_argument("--rank-task", choices=("ddp_reference", "driver"), help=argparse.SUPPRESS)
+    ap.add_argument("--rank-task", choices=("ddp_reference", "driver", "mp"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -1432,8 +2021,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, here)
     if args.rank_task:
-        {"ddp_reference": ddp_reference_rank, "driver": driver_rank}[args.rank_task](
-            torch, args.work)
+        {"ddp_reference": ddp_reference_rank, "driver": driver_rank, "mp": mp_rank}[
+            args.rank_task](torch, args.work)
         return 0
 
     from geoformer_tpu_torch import config as cfg_mod
@@ -1633,7 +2222,7 @@ def main(argv=None) -> int:
     by_path.update(trained["by_path"])
 
     # data parallelism: ranks of this script on the one card
-    ddp_reference(torch, cfg_mod, Engine, synthetic_batch, here)
+    ddp_ref = ddp_reference(torch, cfg_mod, Engine, synthetic_batch, here)
     ddp = ddp_train(torch, cfg_mod, Engine, here, counters, data, trained["data"])
     ddp_eval = ddp_eval_and_nccl(torch, cfg_mod, here, data, trained["data"], ddp)
     for r, g in enumerate(ddp["ranks"]):
@@ -1641,6 +2230,15 @@ def main(argv=None) -> int:
     by_path["ddp_chain_test"] = ddp["chain"]["launches"]
     for r, launches in enumerate(ddp_eval["rank_launches"]):
         by_path[f"ddp_eval_rank{r}"] = launches
+
+    # model parallelism: data x model ranks of this script on the one card
+    mp = {f"mp_reference_{name}": {"rank_launches": got["launches_f32"]} for name, got in
+          mp_reference(torch, here, ddp_ref)["layouts"].items()}
+    mp.update(mp_train=mp_train(torch, cfg_mod, Engine, synthetic_batch, here),
+              mp_eval=mp_eval(torch, here, data))
+    for phase, got in mp.items():
+        for r, launches in enumerate(got["rank_launches"]):
+            by_path[f"{phase}_rank{r}"] = launches
     k1_row["other_shapes"] = [trained["k1"]]
     fs_rows += trained["k2"]
     k2_row["other_shapes"] = fs_rows

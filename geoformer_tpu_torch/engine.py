@@ -18,6 +18,18 @@ eval methods take the global batch and run this rank's rows of it
 training step runs under the ambient mesh, so its batch norms, draws and
 loss normalisers are the global batch's, its gradient the global one, and
 its returned loss and loss terms the global batch's on every rank.
+
+A ("data", "model") mesh (``make_mesh(model_parallel=M)`` under torchrun,
+as the JAX callers build ``Engine(cfg, mesh=make_mesh(model_parallel=M))``)
+splits each scene's queries over the M ranks of its model group
+(models/geoformer.py). ``train_step`` and ``eval_batch`` run under it;
+``eval_batch`` returns the proposals and NMS of each scene once, on model
+index 0 of its group (the other model ranks' outputs hold neither).
+``encode_scene`` and ``decode_with_support`` run under the model group
+alone: each rank decodes its own scene, as the JAX driver decodes one scene
+outside any data mesh. Dropout draws from the process's generator: seed it
+by the data index (``mesh.data_rank``), so that the ranks of a model group,
+which run the same backbone, draw the same masks.
 """
 
 from __future__ import annotations
@@ -109,7 +121,8 @@ class Engine:
         # each rank's loss terms are its parts of the global batch's
         names = sorted(loss_dict)
         total = all_reduce_sum(torch.stack([loss_dict[k].detach().to(loss.dtype)
-                                            for k in names]), self.mesh)
+                                            for k in names]), self.mesh, axis="all",
+                               site="loss_terms")
         loss_dict = dict(zip(names, total.unbind()))
         return loss_dict["loss"], loss_dict, lr
 
@@ -138,11 +151,16 @@ class Engine:
         rank runs its rows [B/N, ...]: the JAX forward's outputs
         (semantic_scores, voxel_stats, fg_idx, fg_valid, query_valid,
         cls_logits, mask_logits, proposals) plus ``nms``: per-scene
-        matrix-NMS keep flags and decayed scores [B/N, Q]."""
+        matrix-NMS keep flags and decayed scores [B/N, Q]; on a model rank
+        other than its group's first, no ``proposals`` and no ``nms``."""
         if self.few_shot:
             raise ValueError("the few-shot engine runs process_support, encode_scene "
                              "and decode_with_support")
-        out = self.model(self.to_device(shard_batch(batch, self.mesh)))
+        with set_mesh(self.mesh):
+            out = self.model(self.to_device(shard_batch(batch, self.mesh)))
+        if self.mesh.model_rank:
+            del out["proposals"]
+            return out
         out["nms"] = self._nms(out["proposals"], out["proposals"]["classes"])
         return out
 
@@ -159,7 +177,8 @@ class Engine:
         rank's rows (plus their point_mask, pc_mins and pc_maxs, which the
         decode needs); ``decode_with_support`` takes such a cache."""
         tb = self.to_device(shard_batch(scene_batch, self.mesh))
-        cache = self.model.encode_scene(tb)
+        with set_mesh(self.mesh.model_view()):
+            cache = self.model.encode_scene(tb)
         cache.update(point_mask=tb["point_mask"], pc_mins=tb["pc_mins"], pc_maxs=tb["pc_maxs"])
         return cache
 
@@ -169,7 +188,8 @@ class Engine:
         embeddings [B, 2m]: proposals with the matrix NMS over one category
         applied (``keep`` is the NMS's)."""
         emb = torch.as_tensor(support_embeddings, dtype=torch.float32, device=self.device)
-        dec = self.model.decode_with_support(cache, emb, cache["pc_mins"], cache["pc_maxs"])
+        with set_mesh(self.mesh.model_view()):
+            dec = self.model.decode_with_support(cache, emb, cache["pc_mins"], cache["pc_maxs"])
         props = self.model.proposals(dec, cache["point_mask"])
         nms = self._nms(props, torch.zeros_like(props["scores"], dtype=torch.long))
         return {"masks": props["masks"], "scores": props["scores"], "keep": nms["keep"],

@@ -13,6 +13,17 @@ rank's loss is then its part of the global loss, and the sum of the ranks'
 gradients is the global gradient. Per-scene normalisers (a scene's matched
 instances, its valid points, its valid queries) stay local; so does the
 matcher, which is per scene.
+
+On a model axis (parallel/mesh.py) a rank holds the predictions of its own
+queries. It computes their rows of the [B, Q, I] cost matrix, which is
+gathered over the model group; every model rank runs the same assignment
+on it and keeps the matches that fall in its rows. The mask and class
+losses then sum over its queries (the class CE still divides by the
+scene's valid queries, all Q of them), and a term that every rank of a
+model group computes alike, the semantic CE and the matched-instance count,
+counts on model index 0 only (``replica_weight``); so do the query terms
+where M does not divide Q and every model rank runs all queries. The
+ranks' losses then sum to the global loss.
 """
 
 from __future__ import annotations
@@ -26,22 +37,31 @@ from geoformer_tpu_torch.losses.matcher import (
     dice_cost,
     hungarian_assign,
 )
-from geoformer_tpu_torch.parallel.mesh import all_reduce_sum, data_rows
+from geoformer_tpu_torch.parallel.mesh import (
+    all_gather_queries,
+    all_reduce_sum,
+    data_rows,
+    queries_sharded,
+    query_slice,
+    replica_weight,
+)
 
 
 def softmax_cross_entropy_ignore(logits, labels, ignore_label=-100, valid=None,
-                                 global_count: bool = False):
+                                 global_count: bool = False, count=None):
     """Mean CE over the entries whose label != ignore (and valid); with
     ``global_count`` over the global batch's entries (the count summed over
-    the ranks of the data mesh)."""
+    the ranks of the data mesh); ``count`` gives the divisor instead (the
+    entries of which these are a model rank's share)."""
     mask = labels != ignore_label
     if valid is not None:
         mask = mask & valid
     safe = torch.where(mask, labels, 0).long()
     ce = -torch.gather(F.log_softmax(logits, dim=-1), -1, safe[..., None])[..., 0]
-    count = mask.sum()
+    if count is None:
+        count = mask.sum()
     if global_count:
-        count = all_reduce_sum(count)
+        count = all_reduce_sum(count, site="semantic_count")
     return torch.where(mask, ce, 0.0).sum() / count.clamp(min=1)
 
 
@@ -69,15 +89,21 @@ def masked_focal_loss(pred_logits, targets, pair_valid, point_valid, num_gt,
     return (per_pair * pair_valid).sum() / (num_gt + 1e-6)
 
 
-def matched_mask_losses(mask_logits, pred_inds, inst_masks, inst_valid, fg_valid):
-    """One layer's dice and focal: mask_logits [B,Q,F] gathered at the
-    matched queries pred_inds [B,I], per scene over its own instances,
-    summed and divided by the global batch size."""
-    pm = torch.gather(mask_logits, 1, pred_inds[..., None].expand(-1, -1, mask_logits.shape[2]))
-    pv = inst_valid.float()
+def matched_mask_losses(mask_logits, pred_inds, inst_masks, inst_valid, fg_valid,
+                        first: int = 0):
+    """One layer's dice and focal: mask_logits [B,Qr,F] (the queries first
+    .. first + Qr) gathered at the matched queries pred_inds [B,I] that fall
+    among them, per scene over its own instances, summed and divided by
+    the global batch size (each pair divided by the scene's instances)."""
+    qr = mask_logits.shape[1]
+    mine = inst_valid & (pred_inds >= first) & (pred_inds < first + qr)
+    local = (pred_inds - first).clamp(0, qr - 1)
+    pm = torch.gather(mask_logits, 1, local[..., None].expand(-1, -1, mask_logits.shape[2]))
+    pv = mine.float()
+    n_inst = inst_valid.float().sum(dim=1)
     dice = focal = 0.0
     for b in range(mask_logits.shape[0]):
-        ngt = pv[b].sum()
+        ngt = n_inst[b]
         dice = dice + masked_dice_loss(pm[b], inst_masks[b], pv[b], fg_valid[b], ngt)
         focal = focal + masked_focal_loss(pm[b], inst_masks[b], pv[b], fg_valid[b], ngt)
     bsz = data_rows(mask_logits.shape[0])[0]
@@ -108,7 +134,7 @@ class InstSetCriterion:
         else:
             sem_loss = softmax_cross_entropy_ignore(
                 semantic_scores, batch["labels"], self.ignore, batch["point_mask"],
-                global_count=True)
+                global_count=True) * replica_weight()
         loss = sem_loss
         loss_dict = {"sem_loss": sem_loss}
         if epoch <= self.cfg.prepare_epochs or "mask_logits" not in outputs:
@@ -121,34 +147,42 @@ class InstSetCriterion:
         inst_masks, inst_valid, inst_sem = build_gt_instances(
             inst_fg, sem_fg, fg_valid, self.max_inst)
 
-        mask_logits = outputs["mask_logits"]  # [L,B,Q,F]
-        cls_logits = outputs["cls_logits"]  # [L,B,Q,C]
-        query_valid = outputs["query_valid"]
+        mask_logits = outputs["mask_logits"]  # [L,B,Qr,F]
+        cls_logits = outputs["cls_logits"]  # [L,B,Qr,C]
+        query_valid = outputs["query_valid"]  # [B,Q]
+        q = query_valid.shape[1]
+        rows = query_slice(q)
+        valid = query_valid[:, rows]
+        # the query terms' weight: this rank's share, or all Q on each model rank
+        w_query = 1.0 if queries_sharded(q) else replica_weight()
 
         # match on the last layer (detached), reuse for the other layers
         with torch.no_grad():
             cost_d = dice_cost(mask_logits[-1], inst_masks, fg_valid)
-            cls_prob = torch.softmax(cls_logits[-1], dim=-1)  # [B,Q,C]
+            cls_prob = torch.softmax(cls_logits[-1], dim=-1)  # [B,Qr,C]
             cost_c = -torch.gather(cls_prob, 2, inst_sem[:, None, :].expand_as(cost_d))
-            cost = torch.where(query_valid[:, :, None], cost_d + cost_c, 1e6)
+            cost = torch.where(valid[:, :, None], cost_d + cost_c, 1e6)
+            cost = all_gather_queries(cost, q, site="match_cost")  # [B,Q,I]
             pred_inds = self._assign(cost, inst_valid)  # [B,I]
 
         bsz = mask_logits.shape[1]
         global_bsz = data_rows(bsz)[0]
         # class targets: 0 everywhere but at the matched queries
-        cls_label = torch.zeros(cls_logits.shape[1:3], dtype=torch.long,
-                                device=cls_logits.device)
+        cls_label = torch.zeros(query_valid.shape, dtype=torch.long, device=cls_logits.device)
         cls_label = cls_label.scatter_reduce(1, pred_inds, torch.where(inst_valid, inst_sem, 0),
-                                             reduce="amax")
+                                             reduce="amax")[:, rows]
+        n_valid = query_valid.sum(dim=1)
         n_layers = mask_logits.shape[0]
         for layer in range(n_layers):
             d, f = matched_mask_losses(mask_logits[layer], pred_inds, inst_masks, inst_valid,
-                                       fg_valid)
+                                       fg_valid, first=rows.start)
             c = sum(softmax_cross_entropy_ignore(cls_logits[layer, b], cls_label[b], -100,
-                                                 query_valid[b]) for b in range(bsz)) / global_bsz
+                                                 valid[b], count=n_valid[b])
+                    for b in range(bsz)) / global_bsz
+            d, f, c = d * w_query, f * w_query, c * w_query
             loss = loss + self.w_dice * d + self.w_focal * f + self.w_cls * c
             if layer == n_layers - 1:
                 loss_dict.update({"dice_loss": d, "focal_loss": f, "cls_loss": c})
-        loss_dict["num_gt"] = inst_valid.float().sum()
+        loss_dict["num_gt"] = inst_valid.float().sum() * replica_weight()
         loss_dict["loss"] = loss
         return loss, loss_dict

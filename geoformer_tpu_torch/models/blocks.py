@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from geoformer_tpu_torch.parallel.mesh import all_reduce_sum
+from geoformer_tpu_torch.parallel.mesh import all_reduce_sum, stats_axis
 
 
 class MaskedBatchNorm(nn.Module):
@@ -37,7 +37,13 @@ class MaskedBatchNorm(nn.Module):
     global count, so they stay equal on every rank. A rematerialized block
     runs its forward again in the backward and issues the same two
     collectives again: every rank recomputes the same blocks in the same
-    order, so the ranks' collectives still pair up."""
+    order, so the ranks' collectives still pair up.
+
+    On a ("data", "model") mesh the statistics sum over the data axis: the
+    ranks of a model group hold the same rows, and each contributes the
+    cotangent of its own part of the loss. On query rows that the model axis
+    splits (``mesh.on_query_rows``: the query projection, the class and
+    controller heads) they sum over every rank."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-4):
         super().__init__()
@@ -53,10 +59,13 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             m = mask.to(x.dtype)[..., None]
             lead = tuple(range(x.ndim - 1))
-            total = all_reduce_sum(torch.cat([(x * m).sum(dim=lead), m.sum()[None]]))
+            axis = stats_axis()
+            total = all_reduce_sum(torch.cat([(x * m).sum(dim=lead), m.sum()[None]]),
+                                   axis=axis, site="batch_norm")
             n = total[-1].clamp(min=1.0)
             mean = total[:-1] / n
-            var = all_reduce_sum((m * (x - mean) ** 2).sum(dim=lead)) / n
+            var = all_reduce_sum((m * (x - mean) ** 2).sum(dim=lead), axis=axis,
+                                 site="batch_norm") / n
             if self.update_stats:
                 self._update_running(mean, var, n)
         else:
@@ -136,6 +145,19 @@ class GenericMLP(nn.Module):
         return x
 
 
+def dropout_rows(x, p: float, training: bool, dim: int, rows: slice | None, n: int):
+    """``F.dropout`` of ``x``, whose axis ``dim`` holds the rows ``rows`` of
+    ``n`` (all of them when ``rows`` is None): the mask is drawn for all n
+    rows and sliced, so a model rank draws what one process draws for its
+    rows, from the same generator state."""
+    if rows is None or not training or p == 0.0 or x.shape[dim] == n:
+        return F.dropout(x, p, training)
+    shape = list(x.shape)
+    shape[dim] = n
+    keep = F.dropout(x.new_ones(shape), p, True).narrow(dim, rows.start, rows.stop - rows.start)
+    return x * keep
+
+
 def masked_softmax(logits, mask, dim):
     neg = torch.finfo(logits.dtype).min
     out = torch.softmax(torch.where(mask, logits, neg), dim=dim)
@@ -173,7 +195,10 @@ class MultiHeadSelfAttention(nn.Module):
         self.v = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, q_in, k_in, v_in, mask):
+    def forward(self, q_in, k_in, v_in, mask, rows: slice | None = None):
+        """``rows``: the rows of k_in that q_in holds, when q_in holds a
+        model rank's queries of them (its attention dropout mask is then
+        drawn for every query and sliced)."""
         d_head = self.d_model // self.nhead
         heads = lambda t: t.reshape(t.shape[:-1] + (self.nhead, d_head))
         q, k, v = heads(self.q(q_in)), heads(self.k(k_in)), heads(self.v(v_in))
@@ -184,7 +209,7 @@ class MultiHeadSelfAttention(nn.Module):
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d_head)
             attn = masked_softmax(logits, mask[:, None, None, :], dim=-1)
-            attn = F.dropout(attn, self.dropout, self.training)
+            attn = dropout_rows(attn, self.dropout, self.training, 2, rows, k.shape[1])
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.out(out.reshape(out.shape[:-2] + (self.d_model,)))
 

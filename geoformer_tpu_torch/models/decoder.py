@@ -6,6 +6,13 @@ attention: similarity = MLP(query - context + rel_pos), values =
 v_mlp(context + rel_pos), softmax over contexts. The reference's residual
 quirk is kept: after the cross-attention the residual adds
 dropout(norm2(pre-attention tgt)), not the pre-attention stream.
+
+On a model axis (parallel/mesh.py) a rank runs its own query rows: the
+self-attention gathers its keys and values (``qk`` and the normed stream,
+[B, Q, d]) over the model group and attends from its own rows with the
+full query mask; the cross-attention and the FFN need nothing of the other
+ranks. Dropout masks are drawn for all Q rows and sliced
+(``blocks.dropout_rows``), so that a step draws the same masks on any M.
 """
 
 from __future__ import annotations
@@ -16,7 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from geoformer_tpu_torch.models.blocks import LayerNorm, MultiHeadSelfAttention, masked_softmax
+from geoformer_tpu_torch.models.blocks import (
+    LayerNorm,
+    MultiHeadSelfAttention,
+    dropout_rows,
+    masked_softmax,
+)
+from geoformer_tpu_torch.parallel.mesh import all_gather_queries, query_slice
 
 
 class RelDecoderLayer(nn.Module):
@@ -36,12 +49,18 @@ class RelDecoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model)
 
     def forward(self, tgt, memory, query_pos, rel_pos, query_mask, memory_mask):
-        """tgt [B,Q,d], memory [B,K,d], query_pos [B,Q,d], rel_pos
-        [B,Q,K,d], query_mask [B,Q], memory_mask [B,K]."""
-        drop = lambda t: F.dropout(t, self.dropout, self.training)
+        """tgt [B,Qr,d], memory [B,K,d], query_pos [B,Qr,d], rel_pos
+        [B,Qr,K,d], query_mask [B,Q], memory_mask [B,K]: Qr = this rank's
+        rows of the Q queries (``mesh.query_slice``), all of them without
+        a model axis."""
+        q = query_mask.shape[1]
+        rows = query_slice(q)
+        drop = lambda t: dropout_rows(t, self.dropout, self.training, 1, rows, q)
         tgt2 = self.norm1(tgt)
         qk = tgt2 + query_pos
-        tgt = tgt + drop(self.self_attn(qk, qk, tgt2, query_mask))
+        tgt = tgt + drop(self.self_attn(
+            qk, all_gather_queries(qk, q, site="decoder_qk"),
+            all_gather_queries(tgt2, q, site="decoder_v"), query_mask, rows))
         tgt2 = self.norm2(tgt)
 
         diff = tgt2[:, :, None, :] - memory[:, None, :, :] + rel_pos  # [B,Q,K,d]

@@ -67,19 +67,23 @@ def _rounded(x, compute_dtype):
 
 
 def mask_heads_forward(geo_dist, mask_features, w1, b1, w2, b2, coords, query_locs,
-                       q_chunk: int = 64, compute_dtype=None):
+                       q_chunk: int = 64, compute_dtype=None, scene_max=None):
     """Per-scene dynamic conv. geo_dist [P,Q], mask_features [P,m], w1
     [Q,m,c_in], b1 [Q,m], w2 [Q,m], b2 [Q], coords [P,3], query_locs [Q,3]
     -> mask logits [Q,P]. ``compute_dtype`` (bf16) rounds the first layer's
     operands (features, weights, relative coords) to it; the products and
-    everything after them stay float32, as in the JAX module."""
+    everything after them stay float32, as in the JAX module. ``scene_max``:
+    the fallback of a query that reaches no point, the maximum over all the
+    scene's queries (by default over these Q; a model rank that holds some
+    of them passes the maximum over its model group)."""
     mask_features = _rounded(mask_features, compute_dtype)
     w1 = _rounded(w1, compute_dtype)
     q = w1.shape[0]
     geo_qp = geo_dist.T  # [Q,P]
     # per-query max with the global fallback, over ALL queries
     max_geo = geo_qp.amax(dim=1)
-    max_geo = torch.where(max_geo < 0, max_geo.amax(), max_geo)
+    max_geo = torch.where(max_geo < 0, max_geo.amax() if scene_max is None else scene_max,
+                          max_geo)
     parts = []
     for s in range(0, q, q_chunk):
         sl = slice(s, s + q_chunk)

@@ -28,6 +28,19 @@ batch's table (``draw_subsample``), so each scene packs as it does in a
 single process. Dropout draws from the process's own generator, seeded
 per rank by the drivers: statistically the same, not the same masks (the
 equality checks run with dropout 0).
+
+Model parallelism (the JAX ``model`` mesh axis, parallel/mesh.py): the
+ranks of a model group hold the same scenes and run the backbone, the mask
+tower, the aggregator (K2) and the radius graph (K1) alike; each then
+solves the geodesic table's columns of its own queries
+(``mesh.query_slice``, the ``_shard_solve`` counterpart; the table stays
+[B, F, Q/M]) and runs the rel-pos embedding, the decoder and the mask head
+on them. The decoder's self-attention gathers its [B, Q, d] keys and
+values over the model group; at eval the last layer's class and mask
+logits are gathered before the proposals, as the JAX eval all-gathers
+them. The rel-pos fallback maximum spans the ranks that JAX's batch-wide
+``jnp.max`` spans, the mask head's the scene's queries
+(``all_reduce_max``).
 """
 
 from __future__ import annotations
@@ -54,7 +67,13 @@ from geoformer_tpu_torch.ops.geodesic import geodesic_distance_hier
 from geoformer_tpu_torch.ops.radius_graph import radius_knn
 from geoformer_tpu_torch.ops.sparse_conv import build_grid_plan, plan_stats, voxel_capacities
 from geoformer_tpu_torch.ops.voxelize import devoxelize, voxel_mean_pool
-from geoformer_tpu_torch.parallel.mesh import data_rows
+from geoformer_tpu_torch.parallel.mesh import (
+    all_gather_queries,
+    all_reduce_max,
+    data_rows,
+    on_query_rows,
+    query_slice,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,6 +275,10 @@ class GeoFormerBase(nn.Module):
 
     def __init__(self, mc: ModelConfig):
         super().__init__()
+        if mc.subm_k < 27 and not mc.brick_occupancy:
+            raise NotImplementedError(
+                "the compact submanifold conv (tpu_subm_k < 27 with tpu_brick_occupancy 0) "
+                "is not ported; only the exact 27-offset conv is")
         self.mc = mc
         m = mc.m
         in_ch = mc.input_channel + (3 if mc.use_coords else 0)
@@ -370,10 +393,14 @@ class GeoFormerBase(nn.Module):
     @torch.no_grad()
     def forward_geodesic(self, fg_locs, fg_valid, context_inds, context_valid,
                          train: bool = False):
-        """Radius-kNN graph + two-level geodesic solve -> (geo [B,F,Q],
+        """Radius-kNN graph + two-level geodesic solve -> (geo [B,F,Qr],
         n_radius_cell_overflow [B], n_radius_window_overflow [B]). Training
         takes ``geodesic_steps_train`` coarse steps, eval
-        ``geodesic_steps_eval``."""
+        ``geodesic_steps_eval``. The graph is built for the whole scene on
+        every rank of a model group; the solve runs the seed columns of
+        this rank's queries Qr (``query_slice``; all Q without a model
+        axis): the columns are independent, so the table is the same
+        columns of the one-process table."""
         mc = self.mc
         if not mc.geodesic_hier:
             raise NotImplementedError("only the hierarchical geodesic solver is ported")
@@ -390,8 +417,9 @@ class GeoFormerBase(nn.Module):
             dense_grid=mc.knn_dense_grid, select=mc.knn_select)
         self._stage("radius_graph")
         nbr_d = torch.sqrt(d2.clamp(max=4.0).clamp(min=0.0))
+        rows = query_slice(q)
         geo, self.geodesic_passes = geodesic_distance_hier(
-            nbr_i, nbr_d, context_inds[:, :q], context_valid[:, :q], fg_valid,
+            nbr_i, nbr_d, context_inds[:, :q][:, rows], context_valid[:, :q][:, rows], fg_valid,
             mc.geodesic_radius, mc.geodesic_steps_train if train else mc.geodesic_steps_eval,
             fg_locs,
             fine_sweeps=mc.geodesic_fine_sweeps, cell_factor=mc.geodesic_cell_factor,
@@ -408,14 +436,19 @@ class GeoFormerBase(nn.Module):
 
     def rel_pos_tensor(self, query_locs, context_locs, geo_dist, context_inds, pc_mins,
                        pc_maxs):
-        """Geodesic-guided relative position embedding: geo_dist [B,F,Q] ->
-        [B,Q,K,dec_dim]."""
+        """Geodesic-guided relative position embedding: geo_dist [B,F,Qr]
+        (this rank's query columns), query_locs [B,Qr,3] -> [B,Qr,K,dec_dim].
+        A query that reaches no context point (an invalid query slot) takes
+        the largest maximum of every query of the batch, as JAX's
+        ``jnp.max`` over the whole [B, Q] does under SPMD: over every rank
+        of the ambient mesh."""
         b, k, _ = context_locs.shape
         q = query_locs.shape[1]
         rel = (query_locs[:, :, None, :] - context_locs[:, None, :, :]).abs()  # [B,Q,K,3]
         geo_ctx = gather_rows(geo_dist, context_inds).transpose(1, 2)  # [B,Q,K]
         max_geo = geo_ctx.amax(dim=2)
-        max_geo = torch.where(max_geo < 0, max_geo.amax(), max_geo)  # batch-global fallback
+        fallback = all_reduce_max(max_geo.amax(), "all", site="rel_pos_max")
+        max_geo = torch.where(max_geo < 0, fallback, max_geo)
         geo3 = geo_ctx[..., None].expand(b, q, k, 3)
         geo3 = torch.where(geo3 < 0, max_geo[:, :, None, None] + rel, geo3)
         ra, rb = self._pos_range(pc_mins, pc_maxs)
@@ -424,33 +457,46 @@ class GeoFormerBase(nn.Module):
     def run_decoder(self, enc2dec, context_locs, context_feats, context_valid, geo_dist,
                     context_inds, pc_mins, pc_maxs):
         """``enc2dec`` is the model's own encoder_to_decoder_projection (2m
-        wide in the supervised model, 6m in the few-shot one)."""
+        wide in the supervised model, 6m in the few-shot one). -> decoder
+        outputs [L,B,Qr,d] and query_locs [B,Qr,3] of this rank's queries,
+        query_valid [B,Q] of all of them."""
         q = self.mc.n_query_points
+        rows = query_slice(q)
         ctx_feats = self._detach_if_fixed("encoder_to_decoder_projection",
                                           enc2dec(context_feats, context_valid))
-        query_locs = context_locs[:, :q]
+        query_locs = context_locs[:, :q][:, rows]
         query_valid = context_valid[:, :q]
         ra, rb = self._pos_range(pc_mins, pc_maxs)
-        query_pos = self.query_projection(self.pos_embedding(query_locs, ra, rb), query_valid)
         rel_pos = self.rel_pos_tensor(query_locs, context_locs, geo_dist, context_inds,
                                       pc_mins, pc_maxs)
-        dec_outputs = self._detach_if_fixed("decoder", self.decoder(
-            ctx_feats[:, :q], ctx_feats, query_pos, rel_pos, query_valid, context_valid))
+        with on_query_rows(q):
+            query_pos = self.query_projection(self.pos_embedding(query_locs, ra, rb),
+                                              query_valid[:, rows])
+            dec_outputs = self._detach_if_fixed("decoder", self.decoder(
+                ctx_feats[:, :q][:, rows], ctx_feats, query_pos, rel_pos, query_valid,
+                context_valid))
         return dec_outputs, query_locs, query_valid
 
     # ---------------- mask head ----------------
 
     def get_mask_prediction(self, sem_head, x, geo_dist, mask_feats, fg_locs, fg_valid,
                             query_locs, query_valid):
-        """One decoder layer's output x [B,Q,d] -> cls logits [B,Q,classes]
-        (None without a ``sem_head``), dynamic-conv mask logits [B,Q,F]
-        (-1e4 at pad fg slots)."""
-        cls_logits = sem_head(x, query_valid) if sem_head is not None else None
-        params = self._detach_if_fixed("controller", self.controller_head(x, query_valid))
+        """One decoder layer's output x [B,Qr,d] (this rank's rows of the
+        query_valid [B,Q] queries; geo_dist [B,F,Qr], query_locs [B,Qr,3])
+        -> cls logits [B,Qr,classes] (None without a ``sem_head``),
+        dynamic-conv mask logits [B,Qr,F] (-1e4 at pad fg slots). The mask
+        head's fallback is the scene's maximum over all Q queries."""
+        q = query_valid.shape[1]
+        valid = query_valid[:, query_slice(q)]
+        with on_query_rows(q):
+            cls_logits = sem_head(x, valid) if sem_head is not None else None
+            params = self._detach_if_fixed("controller", self.controller_head(x, valid))
         w1, b1, w2, b2 = parse_dynamic_params(params, self.mc.m, use_coords=True)
+        scene_max = all_reduce_max(geo_dist.amax(dim=(1, 2)), "model", site="mask_head_max")
         mask_logits = torch.stack([
             mask_heads_forward(geo_dist[i], mask_feats[i], w1[i], b1[i], w2[i], b2[i],
-                               fg_locs[i], query_locs[i], compute_dtype=self.mc.compute_dtype)
+                               fg_locs[i], query_locs[i], compute_dtype=self.mc.compute_dtype,
+                               scene_max=scene_max[i])
             for i in range(x.shape[0])])
         mask_logits = torch.where(fg_valid[:, None, :], mask_logits, -1e4)
         return cls_logits, mask_logits
@@ -459,9 +505,10 @@ class GeoFormerBase(nn.Module):
                           fg_valid, query_locs, query_valid, train: bool,
                           generator: torch.Generator | None):
         """Training: every decoder layer's predictions on a random
-        ``train_subsample`` of the fg slots -> (cls_logits [L,B,Q,C] or
-        None, mask_logits [L,B,Q,S], sub_idx [B,S], sub_valid [B,S]).
-        Eval: the last layer's on every fg slot (sub_idx None)."""
+        ``train_subsample`` of the fg slots -> (cls_logits [L,B,Qr,C] or
+        None, mask_logits [L,B,Qr,S], sub_idx [B,S], sub_valid [B,S]) of
+        this rank's queries. Eval: the last layer's on every fg slot
+        (sub_idx None), of all Q queries (gathered over the model group)."""
         sub_idx = None
         if train:
             sub_idx, fg_valid = random_pack_by_mask(fg_valid, self.mc.train_subsample, generator)
@@ -474,7 +521,13 @@ class GeoFormerBase(nn.Module):
                                                     fg_valid, query_locs, query_valid)
                            for x in dec_outputs))
         cls_logits = torch.stack(cls) if sem_head is not None else None
-        return cls_logits, torch.stack(masks), sub_idx, fg_valid
+        masks = torch.stack(masks)
+        if not train:
+            q = query_valid.shape[1]
+            masks = all_gather_queries(masks, q, dim=2, site="eval_mask_logits")
+            if cls_logits is not None:
+                cls_logits = all_gather_queries(cls_logits, q, dim=2, site="eval_cls_logits")
+        return cls_logits, masks, sub_idx, fg_valid
 
 
 # child module name -> the name ModelConfig.is_fixed knows it by (the JAX

@@ -112,6 +112,28 @@ def cuda_index(backend_name: str | None = None) -> int:
                        "(--dist_backend gloo lets ranks share a card)")
 
 
+def axis_groups(model_parallel: int):
+    """-> (this rank's data group, its model group) of the ("data",
+    "model") layout with model groups of ``model_parallel`` consecutive
+    ranks (JAX's ``reshape(-1, model_parallel)``): the data group holds the
+    ranks of this model index, the model group those of this data index.
+    Every rank creates every group, in the same order."""
+    import torch.distributed as dist
+
+    world, rank = get_world_size(), get_rank()
+    m = model_parallel
+    data_group = model_group = None
+    for j in range(m):
+        g = dist.new_group(list(range(j, world, m)))
+        if rank % m == j:
+            data_group = g
+    for i in range(world // m):
+        g = dist.new_group(list(range(i * m, (i + 1) * m)))
+        if rank // m == i:
+            model_group = g
+    return data_group, model_group
+
+
 def barrier() -> None:
     import torch.distributed as dist
 

@@ -1,6 +1,8 @@
-"""Start the ranks of a data-parallel run as ``torchrun`` would: one process
-a rank with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
-``MASTER_PORT`` set, on this host.
+"""Start the ranks of a data-parallel or data x model run as ``torchrun``
+would: one process a rank with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT`` set, on this host. The layout is the
+ranks' own: ``make_mesh(model_parallel=M)`` in each of ``world`` = N x M
+ranks makes rank r data index r // M and model index r % M.
 
     ranks = Ranks([sys.executable, "-m", "geoformer_tpu_torch.cli.train", ...],
                   world=2, timeout_s=600, log_dir="build/ranks")

@@ -16,14 +16,18 @@ SGD with momentum and decayed weights added before the momentum, under
   still decay);
 * ``grad_accum_steps`` = k: the running mean of k micro-step gradients,
   one update on the k-th micro-step, the parameters unchanged in between;
-* under a data mesh of N ranks (parallel/mesh.py), one all-reduce of
-  the SUM of the trainable gradients, flattened into one buffer, before
+* under a mesh of N ranks (parallel/mesh.py), one all-reduce of
+  the SUM of the trainable gradients over every rank, flattened into one buffer, before
   each update: the losses are normalised over the global batch
   (losses/), so the sum is the global batch's gradient, as SPMD's
   implicit psum makes it in the JAX package (DDP's mean would be N times
   too small). Every trainable parameter takes part, with zeros where the
   step's loss did not reach it, so every rank reduces the same buffer; the
-  frozen modules are in no rank's buffer. With accumulation the reduction
+  frozen modules are in no rank's buffer. On a ("data", "model") mesh
+  each rank's gradient is that of its own part of the global loss (its
+  queries' terms, and the terms its model group computes alike on model
+  index 0 only), so the same sum over every rank is the global gradient.
+  With accumulation the reduction
   runs once, at the update, on the window's mean (the mean of the ranks'
   sums is the sum of their means). No ``DistributedDataParallel``: its
   module wrapping does not fit the frozen modules, the remat and the
@@ -110,7 +114,7 @@ class TrainState:
 
     @torch.no_grad()
     def reduce_gradients(self) -> None:
-        """The trainable gradients summed over the data mesh's ranks, in one
+        """The trainable gradients summed over every rank of the mesh, in one
         all-reduce of one flat buffer (per dtype); nothing without a process
         group."""
         if self.mesh is None or self.mesh.group is None:
@@ -119,7 +123,8 @@ class TrainState:
         for p in self.params.values():
             by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
-            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), self.mesh,
+                                  axis="all", site="gradients")
             offset = 0
             for g in grads:
                 g.copy_(flat[offset:offset + g.numel()].view_as(g))

@@ -96,14 +96,15 @@ def test_draws_are_the_global_tables_rows(capacity):
 
 def test_world_of_one_needs_no_group(monkeypatch):
     """Without torchrun's environment nothing is initialised, the mesh is a
-    world of 1 and the query axis raises."""
+    world of 1, and a model axis of 2 does not divide it (the JAX assert at
+    geoformer_tpu/parallel/mesh.py:29)."""
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
     assert tdist.init_distributed() is False and not tdist.is_initialized()
     mesh = make_mesh(device="cpu")
     assert (mesh.rank, mesh.world, mesh.group, mesh.device) == (0, 1, None, torch.device("cpu"))
     assert default_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="cannot be split into model groups of 2"):
         make_mesh(model_parallel=2, device="cpu")
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(RuntimeError, match="partial torchrun environment"):

@@ -210,6 +210,26 @@ def test_geodesic_table(setup):
                for c, f in setup["model"].geodesic_passes)
 
 
+def test_only_invalid_queries_take_the_rel_pos_fallback(setup):
+    """The rel-pos fallback (geoformer_tpu/models/geoformer.py:536-537, the
+    maximum over the whole batch) replaces a query's maximum over its
+    contexts only where that is negative. On JAX's own table a valid query
+    is its own seed (the first Q contexts are the queries) at distance 0,
+    so its maximum is >= 0 and it never takes the fallback; an invalid
+    query slot has no seed and an all -1 column, and always takes it."""
+    jgeo = setup["jgeo"][0]  # [B,F,Q]
+    _, _, jinds, jvalid = setup["jagg"]
+    q = jgeo.shape[2]
+    for b in range(jgeo.shape[0]):
+        ctx = jgeo[b][jinds[b]]  # [K,Q]: each query's distance to every context
+        for i in range(q):
+            if jvalid[b, i]:
+                assert ctx[i, i] == 0.0 and ctx[:, i].max() >= 0.0
+            else:
+                assert (jgeo[b, :, i] < 0).all()
+    assert jvalid[:, :q].any()
+
+
 def test_heads_logits(setup):
     for key in ("cls_logits", "mask_logits"):
         got, want = setup["tout"][key].numpy(), setup["jout"][key]

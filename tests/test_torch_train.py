@@ -40,6 +40,15 @@ the global batch's loss, gradient and statistics are held against the same
 JAX outputs at the same tolerances, and a step whose second rank holds no
 gt instance against the one-process step on that batch; the ranks' models
 must be bit-equal after the step.
+
+The full-phase step on a ("data", "model") mesh (the JAX ``model`` axis:
+each scene's 8 queries split over M = 2 model ranks) at 1x2 (two ranks,
+one model group) and 2x2 (four ranks, one scene a model group), against
+the same JAX outputs at the same tolerances; each rank's geodesic table
+bit-equal to its columns of the one-process port's table (which
+tests/test_torch_slice.py holds against JAX), the matches equal, the ranks
+bit-equal, and no collective of the step moving an activation as large as
+one scene's [F, Q] table (the gradient's all-reduce aside).
 """
 
 import numpy as np
@@ -59,7 +68,14 @@ from geoformer_tpu_torch.config import load_config
 from geoformer_tpu_torch.engine import Engine
 from geoformer_tpu_torch.synthetic import room_points
 from geoformer_tpu_torch.weights import from_jax_variables, random_state_dict, to_jax_variables
-from torch_dist_worker import ROTATION, SpawnedRanks, draw_table, no_dropout, port_pack
+from torch_dist_worker import (
+    ROTATION,
+    SpawnedRanks,
+    draw_table,
+    no_dropout,
+    port_pack,
+    read_step,
+)
 
 TOL = 1e-4
 STATS_TOL = 1e-5
@@ -215,19 +231,30 @@ def two_ranks_started(supervised_inputs, tmp_path_factory):
     no_gt = dict(nb, instance_labels=nb["instance_labels"].copy())
     no_gt["instance_labels"][1] = -100
     tasks = {"full": train_task(pcfg, sd, nb, 2), "prepare": train_task(pcfg, sd, nb, 1),
-             "no_gt": train_task(pcfg, sd, no_gt, 2)}
+             "no_gt": train_task(pcfg, sd, no_gt, 2),
+             "mp_1x2": train_task(pcfg, sd, nb, 2, model_parallel=2)}
     spawned = SpawnedRanks(tasks, WORLD, str(tmp_path_factory.mktemp("train_ranks")))
+    mp_tasks = {"mp_2x2": train_task(pcfg, sd, nb, 2, model_parallel=2)}
     try:
-        yield dict(spawned=spawned, tasks=tasks)
+        spawned4 = SpawnedRanks(mp_tasks, 4, str(tmp_path_factory.mktemp("train_ranks4")))
+    except BaseException:
+        spawned.ranks.stop()
+        raise
+    try:
+        yield dict(spawned=spawned, tasks=tasks, spawned4=spawned4, mp_tasks=mp_tasks)
     finally:
         spawned.ranks.stop()
+        spawned4.ranks.stop()
 
 
 @pytest.fixture(scope="module")
 def two_ranks(two_ranks_started):
     out = two_ranks_started["spawned"].results()
+    out4 = two_ranks_started["spawned4"].results()
     tasks = two_ranks_started["tasks"]
-    return dict({k: [r[k] for r in out] for k in tasks}, no_gt_batch=tasks["no_gt"]["batch"])
+    return dict({k: [r[k] for r in out] for k in tasks},
+                **{k: [r[k] for r in out4] for k in two_ranks_started["mp_tasks"]},
+                no_gt_batch=tasks["no_gt"]["batch"])
 
 
 @pytest.fixture(scope="module")
@@ -311,10 +338,11 @@ def test_card_step_matches_cpu():
     assert all(res["kernels_equal_to_cpu_run"].values())
 
 
-def train_task(pcfg, sd, batch, epoch, support=None, few_shot=False):
+def train_task(pcfg, sd, batch, epoch, support=None, few_shot=False, model_parallel=1):
     """A ``train`` task of tests/torch_dist_worker.py."""
     return {"task": "train", "cfg": {k: v for k, v in pcfg.to_dict().items() if k != "config"},
-            "sd": sd, "batch": batch, "epoch": epoch, "support": support, "few_shot": few_shot}
+            "sd": sd, "batch": batch, "epoch": epoch, "support": support, "few_shot": few_shot,
+            "model_parallel": model_parallel}
 
 
 def assert_ranks_equal(results):
@@ -371,3 +399,50 @@ def test_two_rank_step_with_a_rank_without_instances(supervised_inputs, two_rank
     for k, v in got[0]["state"].items():
         if k.rsplit(".", 1)[-1] in ("mean", "var"):
             assert_close(v.numpy(), want[k].numpy(), STATS_TOL, k)
+
+
+@pytest.fixture(scope="module")
+def one_process_read(supervised_inputs):
+    """The one-process port's full-phase step, read as the ranks read theirs
+    (its geodesic table and matches)."""
+    engine = Engine(supervised_inputs["pcfg"], device="cpu", state_dict=supervised_inputs["sd"])
+    return read_step(engine, supervised_inputs["nb"], 2)
+
+
+def assert_model_parallel_step(got, one, cfg, model_parallel=2):
+    """Ranks r = d * M + m of a ("data", "model") mesh: each holds query
+    columns m of its data index's scenes in the geodesic table, bit-equal to
+    the one-process table's; every rank ran the same match; no activation
+    a collective moved is as large as one scene's [F, Q] float32 table."""
+    q = cfg.n_query_points
+    per, n_data = q // model_parallel, len(got) // model_parallel
+    b = one["geo"].shape[0] // n_data
+    for r, g in enumerate(got):
+        d, m = divmod(r, model_parallel)
+        want = one["geo"][d * b:(d + 1) * b, :, m * per:(m + 1) * per]
+        assert torch.equal(g["geo"], want), f"rank {r}: geodesic table"
+        assert torch.equal(g["matches"], one["matches"][d * b:(d + 1) * b]), f"rank {r}: matches"
+        table = cfg.tpu_max_fg_points * q * 4
+        moved = {k: v for k, v in g["traffic"].items() if k != "gradients"}
+        assert {"decoder_qk", "decoder_v", "match_cost"} <= set(moved), moved
+        assert not any(k.startswith("eval_") for k in moved), moved
+        assert max(moved.values()) < table, (moved, table)
+
+
+@pytest.mark.parametrize("layout", ["mp_1x2", "mp_2x2"])
+def test_model_parallel_full_phase_step(supervised, two_ranks, one_process_read, layout):
+    """The full phase on a data x model mesh against the JAX step on the
+    whole batch: loss, loss dict, gradients and BN statistics at this
+    file's tolerances; the geodesic table, matches and collectives as
+    ``assert_model_parallel_step`` holds them."""
+    loss, ld, stats, grads_full = (supervised["ref"][i] for i in range(4))
+    got = two_ranks[layout]
+    assert_ranks_equal(got)
+    assert_close(got[0]["loss"], loss, TOL, "loss")
+    assert set(got[0]["loss_dict"]) == set(ld)
+    assert got[0]["loss_dict"]["num_gt"] == float(ld["num_gt"]) > 0
+    for k in ld:
+        assert_close(got[0]["loss_dict"][k], ld[k], TOL, k)
+    assert_grads(got[0]["grads"], grads_full)
+    assert_stats(got[0]["state"], stats)
+    assert_model_parallel_step(got, one_process_read, supervised["cfg"])

@@ -14,7 +14,10 @@ its gradients and the BN statistics after the forward; the port runs
 The frozen backbone's step is a prepare-phase (``semantic_only``) program
 of its own. The few-shot step also runs on two ``gloo`` ranks, one episode
 a rank (tests/torch_dist_worker.py, spawned once), against the same JAX
-outputs at the same tolerances. Tolerances: the loss, each loss term and every gradient leaf within
+outputs at the same tolerances, and on a 1x2 ("data", "model") mesh (the
+episode's 8 queries split over two model ranks) against them too, with the
+ranks' geodesic tables and matches equal to the one-process port's.
+Tolerances: the loss, each loss term and every gradient leaf within
 1e-4 x max(1, |ref|inf); a frozen module's JAX gradient exactly 0 (its port
 parameters take none); BN running statistics within 1e-5, the frozen
 modules' left exactly as they were.
@@ -43,17 +46,16 @@ from test_torch_train import (
     jit_default,
     perturbed_weights,
     port_config,
-    port_pack,
     port_step,
     supervised_inputs,
     train_batch,
     TOL,
     WORLD,
+    assert_model_parallel_step,
     assert_ranks_equal,
     train_task,
 )
-from torch_dist_worker import SpawnedRanks
-import geoformer_tpu_torch.models.geoformer as gf
+from torch_dist_worker import SpawnedRanks, read_step
 
 FS_FROZEN = ["input_conv", "unet", "output_layer", "semantic", "semantic_linear",
              "set_aggregator", "pos_embedding", "query_projection", "decoder"]
@@ -86,7 +88,9 @@ def few_shot(tiny_cfg, tmp_path_factory):
     sd = perturbed_weights(model)
     model.load_state_dict(sd)
     spawned = SpawnedRanks({"step": train_task(pcfg, sd, query, 1, support=support,
-                                               few_shot=True)},
+                                               few_shot=True),
+                            "mp_step": train_task(pcfg, sd, query, 1, support=support,
+                                                  few_shot=True, model_parallel=2)},
                            WORLD, str(tmp_path_factory.mktemp("fs_ranks")))
     variables = to_jax_variables(model)
     jm = JaxGeoFormerFS(JaxModelConfig.from_cfg(cfg))
@@ -109,17 +113,24 @@ def few_shot(tiny_cfg, tmp_path_factory):
             step, variables["params"], variables["batch_stats"], variables["constants"],
             as_jax(support), as_jax(query)))
     try:
-        yield dict(pcfg=pcfg, query=query, support=support, sd=sd, ref=ref, ranks=spawned)
+        yield dict(cfg=cfg, pcfg=pcfg, query=query, support=support, sd=sd, ref=ref,
+                   ranks=spawned)
     finally:
         spawned.ranks.stop()
 
 
-def test_few_shot_step(few_shot, monkeypatch):
-    monkeypatch.setattr(gf, "random_pack_by_mask", port_pack)
-    (loss, (ld, stats)), grads = few_shot["ref"]
+@pytest.fixture(scope="module")
+def one_process_step(few_shot):
+    """The one-process port's few-shot step, read (tests/torch_dist_worker.py
+    ``read_step``), and its engine after it."""
     engine = Engine(few_shot["pcfg"], device="cpu", state_dict=few_shot["sd"], few_shot=True)
-    got_loss, got_ld, got = port_step(engine, few_shot["query"], epoch=1,
-                                      support=few_shot["support"])
+    return engine, read_step(engine, few_shot["query"], 1, few_shot["support"])
+
+
+def test_few_shot_step(few_shot, one_process_step):
+    (loss, (ld, stats)), grads = few_shot["ref"]
+    engine, read = one_process_step
+    got_loss, got_ld, got = read["loss"], read["loss_dict"], read["grads"]
     assert_close(got_loss, loss, TOL, "loss")
     assert set(got_ld) == set(ld) == {"sim_loss", "dice_loss", "focal_loss", "num_gt", "loss"}
     assert got_ld["num_gt"] == float(ld["num_gt"]) > 0 and float(ld["sim_loss"]) > 0
@@ -136,11 +147,13 @@ def test_few_shot_step(few_shot, monkeypatch):
             assert torch.equal(v, few_shot["sd"][k]), k
 
 
-def test_two_rank_few_shot_step(few_shot):
-    """The few-shot step on two ranks (query and support batches sharded)
-    against the JAX step on the whole episode batch."""
+@pytest.mark.parametrize("layout", ["step", "mp_step"])
+def test_two_rank_few_shot_step(few_shot, one_process_step, layout):
+    """The few-shot step on two ranks against the JAX step on the whole
+    episode batch: on the data axis (query and support batches sharded),
+    and on the model axis (1x2: the episode's queries split)."""
     (loss, (ld, stats)), grads = few_shot["ref"]
-    got = [r["step"] for r in few_shot["ranks"].results()]
+    got = [r[layout] for r in few_shot["ranks"].results()]
     assert_ranks_equal(got)
     assert_close(got[0]["loss"], loss, TOL, "loss")
     assert set(got[0]["loss_dict"]) == set(ld)
@@ -150,6 +163,8 @@ def test_two_rank_few_shot_step(few_shot):
     frozen = [k for k in from_jax_variables({"params": grads}) if k not in got[0]["grads"]]
     assert_grads(got[0]["grads"], grads, frozen)
     assert_stats(got[0]["state"], stats)
+    if layout == "mp_step":
+        assert_model_parallel_step(got, one_process_step[1], few_shot["cfg"])
 
 
 def test_frozen_backbone_prepare_step(supervised_inputs):

@@ -13,8 +13,15 @@ saves its results as OUT_DIR/rank{r}.pt. Tasks:
   gradients (summed over the ranks) and running statistics;
 * ``train``: ``Engine.train_step`` on the global batch with the injected
   subsample draws below and no dropout: loss, loss terms, the gradients the
-  update applies (after the ranks' reduction), the model's state after it;
+  update applies (after the ranks' reduction), the model's state after it,
+  this rank's geodesic table, the matches and the collectives' bytes;
+* ``eval``: ``Engine.eval_batch`` on the global batch: its outputs;
+* ``fs_eval``: the few-shot engine's ``process_support``, ``encode_scene``
+  and ``decode_with_support`` on an episode: the decode's outputs;
 * ``cli``: a driver's ``main`` on a command line (``cli.test``): its summary.
+
+A task's ``model_parallel`` (1 by default) is the M of the ("data",
+"model") mesh it runs under: ``make_mesh(model_parallel=M)``.
 
 It imports torch and the port only: spawning a rank costs its interpreter
 and torch, not a JAX import.
@@ -76,29 +83,69 @@ def bn_task(spec, mesh) -> dict:
             "mean": bn.mean.clone(), "var": bn.var.clone()}
 
 
-def train_task(spec, mesh) -> dict:
+def read_step(engine, batch, epoch, support=None) -> dict:
+    """One ``Engine.train_step`` with the injected draws and no dropout,
+    read: loss, loss terms, the gradients the update applies (after the
+    ranks' reduction), the model's state after the step, the geodesic
+    table of this rank's queries, the matches and the bytes of each
+    collective call site (``mesh.TRAFFIC``)."""
     import geoformer_tpu_torch.models.geoformer as gf
-    from geoformer_tpu_torch.config import load_config
-    from geoformer_tpu_torch.engine import Engine
+    from geoformer_tpu_torch.parallel.mesh import TRAFFIC
 
-    gf.random_pack_by_mask = port_pack
-    cfg = load_config(None, **spec["cfg"])
-    engine = Engine(cfg, device="cpu", state_dict=spec["sd"], few_shot=spec["few_shot"],
-                    mesh=mesh)
+    real_pack, gf.random_pack_by_mask = gf.random_pack_by_mask, port_pack
     no_dropout(engine.model)
     state = engine.init_state()
     seen = {}
-    step = state.optimizer.step
+    step, geodesic, assign = (state.optimizer.step, engine.model.forward_geodesic,
+                              engine.criterion._assign)
 
     def reading(*a, **kw):
         seen.update({k: p.grad.clone() for k, p in state.params.items()})
         return step(*a, **kw)
 
-    state.optimizer.step = reading
-    loss, ld, _ = engine.train_step(spec["batch"], spec["epoch"], torch.Generator(),
-                                    support=spec.get("support"))
+    def solving(*a, **kw):
+        out = geodesic(*a, **kw)
+        seen["geo"] = out[0].clone()
+        return out
+
+    def matching(*a, **kw):
+        seen["matches"] = assign(*a, **kw)
+        return seen["matches"]
+
+    state.optimizer.step, engine.model.forward_geodesic = reading, solving
+    engine.criterion._assign = matching
+    TRAFFIC.reset()
+    try:
+        loss, ld, _ = engine.train_step(batch, epoch, torch.Generator(), support=support)
+    finally:
+        gf.random_pack_by_mask = real_pack
     return {"loss": float(loss), "loss_dict": {k: float(v) for k, v in ld.items()},
-            "grads": seen, "state": {k: v.clone() for k, v in engine.model.state_dict().items()}}
+            "grads": {k: v for k, v in seen.items() if k not in ("geo", "matches")},
+            "geo": seen.get("geo"), "matches": seen.get("matches"),
+            "traffic": dict(TRAFFIC.largest),
+            "state": {k: v.clone() for k, v in engine.model.state_dict().items()}}
+
+
+def train_task(spec, mesh) -> dict:
+    from geoformer_tpu_torch.config import load_config
+    from geoformer_tpu_torch.engine import Engine
+
+    cfg = load_config(None, **spec["cfg"])
+    engine = Engine(cfg, device="cpu", state_dict=spec["sd"], few_shot=spec["few_shot"],
+                    mesh=mesh)
+    return read_step(engine, spec["batch"], spec["epoch"], spec.get("support"))
+
+
+def eval_task(spec, mesh) -> dict:
+    from geoformer_tpu_torch.config import load_config
+    from geoformer_tpu_torch.engine import Engine
+
+    engine = Engine(load_config(None, **spec["cfg"]), device="cpu", state_dict=spec["sd"],
+                    mesh=mesh, few_shot=spec["task"] == "fs_eval")
+    if spec["task"] == "eval":
+        return engine.eval_batch(spec["batch"])
+    emb = engine.process_support(spec["support"])
+    return engine.decode_with_support(engine.encode_scene(spec["batch"]), emb)
 
 
 def cli_task(spec, mesh) -> dict:
@@ -107,7 +154,8 @@ def cli_task(spec, mesh) -> dict:
     return importlib.import_module(spec["module"]).main(spec["argv"])
 
 
-TASKS = {"bn": bn_task, "train": train_task, "cli": cli_task}
+TASKS = {"bn": bn_task, "train": train_task, "eval": eval_task, "fs_eval": eval_task,
+         "cli": cli_task}
 
 
 class SpawnedRanks:
@@ -140,9 +188,10 @@ def main(argv) -> None:
 
     tasks = torch.load(argv[0], weights_only=False)
     with process_group("gloo", device="cpu"):
-        mesh = make_mesh(device="cpu")
-        out = {name: TASKS[spec["task"]](spec, mesh) for name, spec in tasks.items()}
-        torch.save(out, os.path.join(argv[1], f"rank{mesh.rank}.pt"))
+        out = {name: TASKS[spec["task"]](
+            spec, make_mesh(model_parallel=spec.get("model_parallel", 1), device="cpu"))
+            for name, spec in tasks.items()}
+        torch.save(out, os.path.join(argv[1], f"rank{torch.distributed.get_rank()}.pt"))
 
 
 if __name__ == "__main__":

@@ -28,9 +28,24 @@ directory that lacks the port's package. It
    kernel, plain version and library call with CUDA events (K1's row adds
    the share of rows that took its exact path, K2's its cluster size and
    its device time from torch.profiler, ``profiler_ms``);
-6. runs the row-gather probe (tools/gather_probe.py: kernel K3 and its plain
+6. ``offpath``: the branches that config keys reach, at the same capacity
+   on one synthetic scene: (a) Engine.eval_batch with the exact geodesic
+   solver (``tpu_geodesic_hier: False``), then also in int16
+   (``tpu_geodesic_int16``), each counted like the main path (geodesic ms,
+   sweeps and whether they reached ``geodesic_steps_eval``, peak memory,
+   capacity counters, which must read 0, K1's and K2's launches, K1 at
+   [131072, 648] with k = 64), and int16's largest distance from float32;
+   (b) the exact solve on a crop of that scene's graph (16,384 points, 64
+   seeds) bit-equal between the card and the CPU in both types, its seed
+   columns in two halves equal to the whole; (c) ``radius_knn`` at the
+   scene's foreground shape in each off-path arm against the shipped arm;
+   (d) the brute-force ball query at the aggregator's shapes against the
+   hash path; (e) the backbone with ``tpu_subm_k`` 9 and 18 (compact slot
+   tables) against the exact conv, with each level's largest live-offset
+   count; then K1 held against its plain version at k = 64;
+7. runs the row-gather probe (tools/gather_probe.py: kernel K3 and its plain
    version, all ``OK``);
-7. writes a synthetic dataset (4 scenes of 250,000 points, 2 of them val)
+8. writes a synthetic dataset (4 scenes of 250,000 points, 2 of them val)
    and two checkpoints of seeded random weights into build/smoke_data (the
    few-shot one with its foreground class biased on, see there), and
    drives both eval drivers on it from their command lines: cli.test at the
@@ -38,11 +53,11 @@ directory that lacks the port's package. It
    config/test_geoformer_fs_scannet.yaml settings (run_num cut to 2). Each
    must end in a finite AP table with every capacity counter at 0 and must
    launch K1 and K2;
-8. holds K3 against its plain version at the probe's shape and at the
+9. holds K3 against its plain version at the probe's shape and at the
    forward's foreground gather, K2 at the two shapes of the few-shot
    path (support instance, 20,000-point aggregator) and K1 at the few-shot
    path's table, captured there;
-9. drives the training paths (``train_paths``): writes a dataset of 4B
+10. drives the training paths (``train_paths``): writes a dataset of 4B
    scenes with their points shuffled, every second one thinned below the
    250,000-point capacity (the first 2B the train split, two steps an epoch
    at the batch size B) and a pretrain checkpoint
@@ -58,18 +73,18 @@ directory that lacks the port's package. It
    at both few-shot shapes); then holds K1 and K2 against their plain
    versions at the training shapes (B > 1), captured in one training-mode
    forward outside the counted runs;
-10. ``train_small_reference``: one full-phase training step at a small size
+11. ``train_small_reference``: one full-phase training step at a small size
    and the published U-Net depth on the card and on the CPU, same weights,
    batch and subsample draws, in float32 and in float64: in float64 the loss
    and every gradient within 1e-9 x max(1, |cpu|inf); in float32 the card
    no further from the float64 step than the CPU, leaf by leaf (see
    there); K1's and K2's card outputs equal to their plain versions' on the
    CPU run's inputs;
-11. data parallelism, with ranks that are processes of this script
+12. data parallelism, with ranks that are processes of this script
    (``--rank-task``) started as torchrun starts them, on the one card over
    ``gloo``; any rank's failure fails the run: ``ddp_reference`` (the step of
-   10 on two ranks, one scene a rank, against the one-process step on the
-   card: float64 within 1e-9, float32 against float64 as 10 holds it, the
+   11 on two ranks, one scene a rank, against the one-process step on the
+   card: float64 within 1e-9, float32 against float64 as 11 holds it, the
    ranks' models bit-equal after two steps), ``ddp_train`` (cli.train on
    config/geoformer_scannet.yaml at two ranks and a global batch of 4, one
    prepare and one full epoch of two steps: each rank's s/step, peak
@@ -78,12 +93,12 @@ directory that lacks the port's package. It
    ranks against one process: every scene's predictions and the AP table
    equal) and, beside it, ``ddp_nccl`` (cli.train at a world of 1 under
    nccl for one prepare step);
-12. model parallelism (the JAX ``model`` mesh axis: each scene's queries
+13. model parallelism (the JAX ``model`` mesh axis: each scene's queries
    split over the M = 2 ranks of a model group), with data x model ranks of
    this script on the one card over ``gloo``: ``mp_reference`` (the step of
-   10 at 1x2 and 2x2 ranks against the one-process step of 11: float64
+   11 at 1x2 and 2x2 ranks against the one-process step of 12: float64
    within 1e-9, each rank's geodesic table bit-equal to its columns of the
-   one-process table, the same matches, float32 as 11 holds it, the ranks
+   one-process table, the same matches, float32 as 12 holds it, the ranks
    bit-equal after two steps, and no collective moving an activation as
    large as one scene's [F, Q] table), ``mp_train`` (two full-phase steps of
    Engine.train_step at config/geoformer_scannet.yaml's widths, 2x2 ranks,
@@ -94,7 +109,7 @@ directory that lacks the port's package. It
    process at B = 2 and at B = 1, scene 0 compared stage by stage: integer
    stages equal, float stages within the bound that the B = 1 / B = 2
    distance sets, see MP_EVAL_RATIO);
-13. prints a ``kernels`` line with each kernel's launches on its paths (K2's
+14. prints a ``kernels`` line with each kernel's launches on its paths (K2's
    by shape: every counted run logs the shape of each K2 call, and a row's
    ``launches`` are those made at its shape), its times and its bound, the
    card's line, and last
@@ -487,6 +502,378 @@ def kernel_edges(torch) -> dict:
         fail(f"kernels disagree with their plain versions on {bad}")
     return res
 
+
+
+# ---------------- the config-reachable off-path branches ----------------
+
+# offpath (b): the crop of the scene's graph on which the exact solve is held
+# bit-equal between the card and the CPU: its first OFFPATH_CROP foreground
+# points and OFFPATH_SEEDS seeds spread over them
+OFFPATH_CROP = 16384
+OFFPATH_SEEDS = 64
+# offpath (c): tpu_knn_window of the compacted-window arms
+OFFPATH_WINDOWS = (64, 128)
+# offpath (e): the compact conv's tpu_subm_k (the scene's largest live
+# count joins them where it is below 27: a k that drops nothing)
+OFFPATH_SUBM_K = (9, 18)
+
+
+def check_eval_out(torch, out, P, F, Q, C) -> None:
+    """Engine.eval_batch's outputs of one scene: shapes and finite values."""
+    shapes = {"semantic_scores": (1, P, C), "cls_logits": (1, 1, Q, C),
+              "mask_logits": (1, 1, Q, F), "fg_idx": (1, F)}
+    for name, shape in shapes.items():
+        if tuple(out[name].shape) != shape:
+            fail(f"{name} shape {tuple(out[name].shape)} != {shape}")
+    if tuple(out["proposals"]["masks"].shape) != (1, Q, P):
+        fail("proposal masks shape")
+    for name in ("semantic_scores", "cls_logits", "mask_logits"):
+        check_finite(torch, name, out[name])
+    check_finite(torch, "proposal scores", out["proposals"]["scores"])
+    check_finite(torch, "nms scores", out["nms"]["scores"])
+
+
+def offpath_eval(torch, engine, batch, counters, name: str) -> dict:
+    """One Engine.eval_batch with the kernels' counts set to 0 just before and
+    read just after; kept for the later checks: the geodesic stage's inputs
+    and table, the aggregator's ball-query inputs and K1's input table at
+    each shape (CallLog keep). Stage ms (each stage closed by a synchronize),
+    sweeps, peak memory, capacity counters."""
+    from geoformer_tpu_torch.cli.test import CAPACITY_COUNTERS
+
+    model = engine.model
+    mc = model.mc
+    kept = {}
+    solve, group = model.forward_geodesic, model.set_aggregator.group
+
+    def keep_solve(*a, **kw):
+        r = solve(*a, **kw)
+        kept.update(geo_inputs=a[:4], geo=r[0])
+        return r
+
+    def keep_group(points, feats, mask, npoint):
+        r = group(points, feats, mask, npoint)
+        kept.update(ball_inputs=(r[0], points, mask))
+        return r
+
+    model.forward_geodesic, model.set_aggregator.group = keep_solve, keep_group
+    for fn in counters.values():
+        fn.launches = 0
+    knn_log = counters["knn_select"].capture = CallLog(keep=True)
+    fps_log = counters["fps"].capture = CallLog()
+    model.stage_ms = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        out = engine.eval_batch(batch)
+        torch.cuda.synchronize()
+    finally:
+        ms = (time.perf_counter() - t) * 1e3
+        counters["knn_select"].capture = counters["fps"].capture = None
+        del model.forward_geodesic, model.set_aggregator.group
+        stage_ms, model.stage_ms = model.stage_ms, None
+    launches = read_launches(counters, fps_log)
+    launches["knn_select_by_shape"] = knn_log.by_shape()
+    check_eval_out(torch, out, batch["points"].shape[1], mc.max_fg_points, mc.n_query_points,
+                   mc.classes)
+    vs = {k: int(out["voxel_stats"][k].sum()) for k in CAPACITY_COUNTERS}
+    geo = kept["geo"]
+    steps = mc.geodesic_steps_eval
+    pp = -(-geo.shape[1] // 512) * 512
+    res = {"phase": "offpath_eval", "variant": name, "ms": ms, "stage_ms": stage_ms,
+           "sweeps": model.geodesic_passes, "stopped_at_cap": model.geodesic_passes[0] >= steps,
+           "geodesic_steps_eval": steps, "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           # the solver's relaxation table [PP + 1, Q] (sink row included)
+           "table_mb": (pp + 1) * geo.shape[2] * (2 if mc.geodesic_int16 else 4) / 1e6,
+           "fg_points": int(out["fg_valid"].sum()), "reached_share": float((geo >= 0).float().mean()),
+           "capacity_counters": vs, "launches": launches}
+    emit(res)
+    if any(vs.values()):
+        fail(f"offpath {name}: a capacity counter is not 0: {vs}")
+    for k in ("knn_select", "fps"):
+        if launches[k] <= 0:
+            fail(f"offpath {name}: kernel {k} was not launched")
+    want = json.dumps([mc.max_fg_points, 27 * mc.radius_cell_cap, mc.knn_neighbors])
+    if launches["knn_select_by_shape"].get(want, 0) != launches["knn_select"]:
+        fail(f"offpath {name}: K1 ran at {launches['knn_select_by_shape']}, expected {want}")
+    return {"res": res, "kept": kept, "knn_log": knn_log}
+
+
+def bits_equal(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(bits(torch, a.cpu()), bits(torch, b.cpu()))
+
+
+def offpath_crop(torch, mc, kept) -> dict:
+    """The exact solve (float32 and int16) on a crop of the scene's graph,
+    bit-equal between the card and the CPU, its seed columns solved in two
+    halves on the card equal to the whole; the crop's graph (K1 on the card,
+    its plain version on the CPU) bit-equal too."""
+    from geoformer_tpu_torch.ops.geodesic import geodesic_distance
+    from geoformer_tpu_torch.ops.radius_graph import radius_knn
+
+    fg_locs, fg_valid = kept["geo_inputs"][:2]
+    locs = fg_locs[:, :OFFPATH_CROP].contiguous()
+    valid = fg_valid[:, :OFFPATH_CROP].contiguous()
+    kw = dict(cell_cap=mc.radius_cell_cap, cell_div=mc.radius_cell_div,
+              dense_grid=mc.knn_dense_grid, select=mc.knn_select)
+    res = {"phase": "offpath_crop", "points": OFFPATH_CROP, "seeds": OFFPATH_SEEDS}
+    graphs = {}
+    for dev in ("cuda", "cpu"):
+        d2, idx, _, _ = radius_knn(locs.to(dev), valid.to(dev), mc.geodesic_radius,
+                                   mc.knn_neighbors, **kw)
+        graphs[dev] = (idx, torch.sqrt(d2.clamp(max=4.0).clamp(min=0.0).double()).float())
+    res["graph_equal"] = all(bits_equal(torch, a, b) for a, b in zip(graphs["cuda"], graphs["cpu"]))
+    seeds = (torch.arange(OFFPATH_SEEDS) * (OFFPATH_CROP // OFFPATH_SEEDS))[None]
+    seed_mask = valid.cpu()[:, seeds[0]]
+    card = [t.cuda() for t in (*graphs["cuda"], seeds, seed_mask, valid, locs)]
+    cpu = [t.cpu() for t in card]
+    half = OFFPATH_SEEDS // 2
+
+    def solve(a, cols, int16):
+        return geodesic_distance(a[0], a[1], a[2][:, cols], a[3][:, cols], a[4],
+                                 mc.geodesic_radius, mc.geodesic_steps_eval, symmetrize=False,
+                                 positions=a[5], int16=int16)
+
+    def timed(a, int16):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = solve(a, slice(None), int16)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    ok = res["graph_equal"]
+    for int16 in (False, True):
+        (g_card, s_card), card_ms = timed(card, int16)
+        (g_cpu, s_cpu), cpu_ms = timed(cpu, int16)
+        halves = torch.cat([solve(card, slice(0, half), int16)[0],
+                            solve(card, slice(half, None), int16)[0]], dim=2)
+        r = {"card_equals_cpu": bits_equal(torch, g_card, g_cpu),
+             "halves_equal_whole": bits_equal(torch, halves, g_card),
+             "sweeps_card": s_card, "sweeps_cpu": s_cpu, "card_ms": card_ms, "cpu_ms": cpu_ms,
+             "reached_share": float((g_cpu >= 0).float().mean())}
+        res["int16" if int16 else "float32"] = r
+        ok = ok and r["card_equals_cpu"] and r["halves_equal_whole"] and s_card == s_cpu
+    emit(res)
+    if not ok:
+        fail("offpath: the exact solve on the crop differs between the card and the CPU")
+    return res
+
+
+def offpath_knn(torch, mc, kept) -> dict:
+    """radius_knn at the scene's foreground shape (k = tpu_knn_neighbors, the
+    exact solver's graph) in each off-path arm against the shipped arm
+    (dense grid, K1): the exact arms bit-equal; the compacted window exact
+    where it counts no overflowing window (counted where it does); sort=False
+    the same edge set on every row whose in-radius count is <= k."""
+    from geoformer_tpu_torch.ops.radius_graph import radius_knn
+
+    fg_locs, fg_valid = kept["geo_inputs"][:2]
+    k = mc.knn_neighbors
+    base = dict(cell_cap=mc.radius_cell_cap, cell_div=mc.radius_cell_div, dense_grid=256,
+                select="pallas")
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = radius_knn(fg_locs, fg_valid, mc.geodesic_radius, kw.pop("k", k),
+                         **dict(base, **kw))
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    (ref_d2, ref_idx, ref_drop, _), ref_ms = run()
+    # every in-radius candidate of a row: the whole window, sorted
+    (all_d2, _, _, _), _ = run(k=27 * mc.radius_cell_cap, select="topk")
+    in_radius = (all_d2 < 1e30).sum(dim=-1)
+    del all_d2
+    arms = {"dense_grid_0": dict(dense_grid=0), "cellwin": dict(cellwin=True),
+            "topk": dict(select="topk"), "passes": dict(select="passes"),
+            "approx": dict(select="approx"), "unsorted": dict(sort=False),
+            **{f"window_{w}": dict(window=w) for w in OFFPATH_WINDOWS}}
+    res = {"phase": "offpath_knn", "shape": list(fg_locs.shape), "k": k, "shipped_ms": ref_ms,
+           "rows_over_k_in_radius": int((in_radius > k).sum()),
+           "max_in_radius": int(in_radius.max()), "arms": {}}
+    bad = []
+    for name, kw in arms.items():
+        (d2, idx, drop, wovf), ms = run(**kw)
+        r = {"kw": kw, "ms": ms, "n_dropped": int(drop.sum()), "n_window_pts": int(wovf.sum())}
+        if name == "unsorted":
+            # the same edges (ids and their d2) as sets, where count <= k
+            rows = in_radius <= k
+            si, oi = torch.sort(idx, dim=-1)
+            ri, orf = torch.sort(ref_idx, dim=-1)
+            same = (si == ri).all(-1) & (bits(torch, torch.gather(d2, -1, oi))
+                                         == bits(torch, torch.gather(ref_d2, -1, orf))).all(-1)
+            r.update(rows_checked=int(rows.sum()), rows_differing=int((rows & ~same).sum()))
+            ok = r["rows_differing"] == 0
+        else:
+            diff = ((idx != ref_idx) | (bits(torch, d2) != bits(torch, ref_d2))).any(-1)
+            r["rows_differing"] = int(diff.sum())
+            window = name.startswith("window")
+            ok = r["rows_differing"] == 0 or (window and r["n_window_pts"] > 0)
+        ok = ok and r["n_dropped"] == int(ref_drop.sum())
+        if not name.startswith("window"):
+            ok = ok and r["n_window_pts"] == 0
+        res["arms"][name] = r
+        bad += [] if ok else [name]
+        del d2, idx
+    emit(res)
+    if bad:
+        fail(f"offpath: radius_knn arms {bad} disagree with the shipped arm")
+    return res
+
+
+def offpath_ball_query(torch, mc, kept) -> dict:
+    """The brute-force ball query (tpu_ball_cell_cap 0) at the aggregator's
+    shapes against the voxel-hash path at a cell cap that does not bind
+    (the scene's largest cell): each center's hits the same points, and a
+    center with nsample hits the same ids in the same order. A center with
+    fewer hits is laid out differently by the two JAX paths, which the port
+    keeps: the brute force sorts the picked lanes by index, so misses (the
+    lowest-index points outside the ball) sit among the hits and the pads
+    repeat lane 0; the hash path puts the hits first and repeats the first
+    hit. At the shipped cap the points the hash path drops and the centers
+    whose hits differ are reported."""
+    from geoformer_tpu_torch.ops.ball_query import ball_query
+    from geoformer_tpu_torch.ops.radius_graph import build_cell_table
+
+    centers, points, mask = kept["ball_inputs"]
+    r, ns = mc.ball_radius, mc.ball_nsample
+    grid = build_cell_table(points[0], mask[0], r, points.shape[1], 1)[0]
+    max_cell = int(grid.counts.max())
+
+    def run(cap):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx, hit = ball_query(centers, points, mask, r, ns, cap)
+        torch.cuda.synchronize()
+        # each center's hit ids, ascending, misses as P
+        hits = torch.sort(torch.where(hit, idx, points.shape[1]), dim=-1)[0]
+        return idx, hit, hits, (time.perf_counter() - t) * 1e3
+
+    bi, bh, b_hits, brute_ms = run(0)
+    wi, wh, w_hits, wide_ms = run(max_cell)
+    _, _, s_hits, shipped_ms = run(mc.ball_cell_cap)
+    full = bh.all(-1)
+    dropped = int(build_cell_table(points[0], mask[0], r, points.shape[1], mc.ball_cell_cap)[4])
+    res = {"phase": "offpath_ball_query", "centers": list(centers.shape[:2]),
+           "points": list(points.shape[:2]), "radius": r, "nsample": ns, "brute_ms": brute_ms,
+           "centers_with_fewer_hits": int((~full).sum()), "hit_share": float(bh.float().mean()),
+           "largest_cell": max_cell, "hash_ms_at_largest_cell": wide_ms,
+           "equal_at_largest_cell": bool(torch.equal(b_hits, w_hits) and torch.equal(
+               bi[full], wi[full]) and torch.equal(wh, torch.sort(wh.byte(), -1, True)[0].bool())),
+           "shipped_cell_cap": mc.ball_cell_cap, "hash_ms_at_shipped_cap": shipped_ms,
+           "points_dropped_at_shipped_cap": dropped,
+           "centers_differing_at_shipped_cap": int((b_hits != s_hits).any(-1).sum())}
+    emit(res)
+    if not res["equal_at_largest_cell"]:
+        fail("offpath: the brute-force ball query disagrees with the hash path")
+    if dropped == 0 and res["centers_differing_at_shipped_cap"]:
+        fail("offpath: the ball query differs at a cell cap that drops no point")
+    return res
+
+
+def offpath_subm(torch, cfg, engine, batch) -> dict:
+    """The backbone with the compact conv (tpu_subm_k of OFFPATH_SUBM_K and
+    the scene's largest live count, no bricks) against the exact 27-slot
+    conv on the same weights: the largest live-offset count of each U-Net
+    level, and the semantic scores and point features, bit-equal where
+    every voxel's count is <= k (the compact table expands to the same
+    27-slot map), their distance reported where not."""
+    from geoformer_tpu_torch.models.geoformer import GeoFormer, ModelConfig
+    from geoformer_tpu_torch.ops.sparse_conv import build_grid_plan, voxel_capacities
+
+    mc = engine.model.mc
+    with torch.no_grad():
+        tb = engine.to_device(batch)
+        plan = build_grid_plan(tb["coords"], tb["point_mask"], mc.spatial, mc.depth,
+                               voxel_capacities(mc.max_voxels, mc.depth, mc.voxel_decay))
+        live = [int((n < n.shape[1]).sum(-1).max()) for n in plan.subm]
+        del plan
+        feats, scores = engine.model.forward_backbone(tb)[:2]
+        res = {"phase": "offpath_subm", "max_live_offsets_by_level": live, "k": {}}
+        bad = []
+        for k in OFFPATH_SUBM_K + ((max(live),) if max(live) < 27 else ()):
+            model = GeoFormer(ModelConfig.from_cfg(cfg.replace(tpu_subm_k=k,
+                                                               tpu_brick_occupancy=0)))
+            model.load_state_dict(engine.model.state_dict())
+            model = model.to(engine.device).eval()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            f, s = model.forward_backbone(tb)[:2]
+            torch.cuda.synchronize()
+            binds = max(live) > k
+            r = {"ms": (time.perf_counter() - t) * 1e3, "binds": binds,
+                 "levels_binding": [lvl for lvl, n in enumerate(live) if n > k],
+                 "point_feats_max_abs_diff": float((f - feats).abs().max()),
+                 "semantic_max_abs_diff": float((s - scores).abs().max()),
+                 "bit_equal": bits_equal(torch, f, feats) and bits_equal(torch, s, scores)}
+            res["k"][k] = r
+            bad += [] if binds or r["bit_equal"] else [k]
+            del model, f, s
+    emit(res)
+    if bad:
+        fail(f"offpath: the compact conv at k = {bad} differs where no voxel has more live offsets")
+    return res
+
+
+def offpath(torch, cfg_mod, Engine, synthetic_batch, counters) -> dict:
+    """The config-reachable off-path branches at the full eval capacity of
+    config/test_geoformer_scannet.yaml on one synthetic scene: (a) two
+    counted Engine.eval_batch runs with the exact geodesic solver, float32
+    then int16, and int16's largest distance from float32; (b) the crop
+    held bit-equal card/CPU; (c) the radius_knn arms; (d) the brute-force
+    ball query; (e) the compact conv; and K1 held against its plain
+    version at the exact solver's table (k = 64). Returns the runs' launches
+    by path and K1's row at that shape."""
+    from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand, select_min_k_cand_plain
+
+    cfg = cfg_mod.scannet_eval_config()
+    batch = synthetic_batch(cfg, 1, seed=0)
+    t0 = time.time()
+    engine = Engine(cfg.replace(tpu_geodesic_hier=False), seed=0)
+    runs = {"exact": offpath_eval(torch, engine, batch, counters, "exact")}
+    runs["int16"] = offpath_eval(torch, Engine(cfg.replace(
+        tpu_geodesic_hier=False, tpu_geodesic_int16=True), seed=0), batch, counters, "int16")
+    torch.cuda.empty_cache()
+    a, b = runs["exact"]["kept"]["geo"], runs["int16"]["kept"].pop("geo")
+    both = (a >= 0) & (b >= 0)
+    emit({"phase": "offpath_int16", "max_abs_m": float((a - b).abs()[both].max()),
+          "mean_abs_m": float((a - b).abs()[both].mean()),
+          "reached_differs": int(((a >= 0) != (b >= 0)).sum())})
+    del a, b, both
+    runs["int16"]["kept"].clear()
+    kept = runs["exact"]["kept"]
+    mc = engine.model.mc
+    offpath_crop(torch, mc, kept)
+    offpath_knn(torch, mc, kept)
+    offpath_ball_query(torch, mc, kept)
+    offpath_subm(torch, cfg, engine, batch)
+    del engine
+    kept.clear()
+    torch.cuda.empty_cache()
+
+    # K1 at the exact solver's table, held against its plain version; its
+    # launches are those of the two counted runs at that shape
+    shape = (mc.max_fg_points, 27 * mc.radius_cell_cap, mc.knn_neighbors)
+    d2, cand, k = runs["exact"]["knn_log"].first[shape]
+    n, w = d2.shape
+    key = json.dumps(list(shape))
+    row = kernel_row(
+        torch, name="knn_select", source="geoformer_tpu_torch/csrc/knn_select.cu",
+        replaces="geoformer_tpu/ops/knn_select_pallas.py:34",
+        launches=sum(r["res"]["launches"]["knn_select_by_shape"][key] for r in runs.values()),
+        kernel=lambda: select_min_k_cand(d2, cand, k),
+        plain=lambda: select_min_k_cand_plain(d2, cand, k),
+        library=lambda: torch.topk(d2, k, dim=1, largest=False),
+        bytes_=n * w * 4 + n * k * 4 + n * k * 8, ops=n * w * k, shape=[n, w, k],
+        reps=20, plain_reps=3, exact_share=exact_share(torch, select_min_k_cand, d2, cand, k))
+    row["launches_by_path"] = {f"offpath_{name}": r["res"]["launches"]["knn_select"]
+                               for name, r in runs.items()}
+    del d2, cand, runs["exact"]["knn_log"].first[shape]
+    emit({"phase": "offpath_done", "seconds": time.time() - t0})
+    return {"by_path": {f"offpath_{name}": r["res"]["launches"] for name, r in runs.items()},
+            "k1": row}
 
 
 # ---------------- training paths ----------------
@@ -2075,17 +2462,7 @@ def main(argv=None) -> int:
         ms = (time.perf_counter() - t) * 1e3
         scene_ms.append(ms)
 
-        shapes = {"semantic_scores": (1, P, C), "cls_logits": (1, 1, Q, C),
-                  "mask_logits": (1, 1, Q, F), "fg_idx": (1, F)}
-        for name, shape in shapes.items():
-            if tuple(out[name].shape) != shape:
-                fail(f"{name} shape {tuple(out[name].shape)} != {shape}")
-        if tuple(out["proposals"]["masks"].shape) != (1, Q, P):
-            fail("proposal masks shape")
-        for name in ("semantic_scores", "cls_logits", "mask_logits"):
-            check_finite(torch, name, out[name])
-        check_finite(torch, "proposal scores", out["proposals"]["scores"])
-        check_finite(torch, "nms scores", out["nms"]["scores"])
+        check_eval_out(torch, out, P, F, Q, C)
         emit({"phase": "forward", "seed": seed, "points": P, "ms": ms,
               "voxel_stats": {k: v.tolist() for k, v in out["voxel_stats"].items()},
               "fg_points": int(out["fg_valid"].sum()),
@@ -2149,6 +2526,9 @@ def main(argv=None) -> int:
         fail(f"fps: the main path launched {launches['fps_by_shape']}, held at {k2_shape}")
     del fps_inputs
 
+    # ---------------- the config-reachable off-path branches ----------------
+    off = offpath(torch, cfg_mod, Engine, synthetic_batch, counters)
+
     # ---------------- K3's own path: the row-gather probe ----------------
     row_gather.launches = 0
     probe = gather_probe.run_probe()
@@ -2161,7 +2541,8 @@ def main(argv=None) -> int:
 
     # ---------------- the two eval drivers on a dataset on disk ----------------
     data = write_smoke_data(torch, cfg_mod, Engine, here)
-    by_path = {"eval_batch": launches, "gather_probe": {"row_gather": probe_launches}}
+    by_path = {"eval_batch": launches, "gather_probe": {"row_gather": probe_launches},
+               **off["by_path"]}
     for name, main_fn in (("test", cli_test.main), ("test_fs", cli_test_fs.main)):
         by_path[f"driver_{name}"] = run_driver(
             torch, name, main_fn, data["paths"][name], counters)["launches"]
@@ -2239,7 +2620,7 @@ def main(argv=None) -> int:
     for phase, got in mp.items():
         for r, launches in enumerate(got["rank_launches"]):
             by_path[f"{phase}_rank{r}"] = launches
-    k1_row["other_shapes"] = [trained["k1"]]
+    k1_row["other_shapes"] = [trained["k1"], off["k1"]]
     fs_rows += trained["k2"]
     k2_row["other_shapes"] = fs_rows
     # the floor of K2's design beside its operations bound: the chain of

@@ -3,10 +3,10 @@ ModelConfig, pack_by_mask, random_pack_by_mask, strided_pack_by_mask,
 GeoFormerBase, GeoFormer, generate_proposal).
 
 voxelize -> sparse U-Net -> semantic head -> fg packing -> mask tower ->
-set aggregator (subsample + FPS + ball group) -> radius kNN + two-level
-geodesic -> Fourier embeddings -> rel-attention decoder -> dynamic-conv mask
-head -> proposals (eval) or every decoder layer's outputs on a random fg
-subsample (training).
+set aggregator (subsample + FPS + ball group) -> radius kNN + geodesic
+(two-level, or exact in float32 or int16) -> Fourier embeddings ->
+rel-attention decoder -> dynamic-conv mask head -> proposals (eval) or
+every decoder layer's outputs on a random fg subsample (training).
 
 Submodule names follow the JAX variable tree (``backbone``, ``semantic``,
 ``mask_tower{i}``, ``decoder/layer{i}/...``), so weights.from_jax_variables
@@ -63,7 +63,7 @@ from geoformer_tpu_torch.models.dynamic_conv import (
 from geoformer_tpu_torch.models.pos_embedding import PositionEmbeddingCoordsFourier
 from geoformer_tpu_torch.models.unet import SemanticHead, SparseUNetBackbone
 from geoformer_tpu_torch.ops import gather_rows
-from geoformer_tpu_torch.ops.geodesic import geodesic_distance_hier
+from geoformer_tpu_torch.ops.geodesic import geodesic_distance, geodesic_distance_hier
 from geoformer_tpu_torch.ops.radius_graph import radius_knn
 from geoformer_tpu_torch.ops.sparse_conv import build_grid_plan, plan_stats, voxel_capacities
 from geoformer_tpu_torch.ops.voxelize import devoxelize, voxel_mean_pool
@@ -275,10 +275,6 @@ class GeoFormerBase(nn.Module):
 
     def __init__(self, mc: ModelConfig):
         super().__init__()
-        if mc.subm_k < 27 and not mc.brick_occupancy:
-            raise NotImplementedError(
-                "the compact submanifold conv (tpu_subm_k < 27 with tpu_brick_occupancy 0) "
-                "is not ported; only the exact 27-offset conv is")
         self.mc = mc
         m = mc.m
         in_ch = mc.input_channel + (3 if mc.use_coords else 0)
@@ -299,7 +295,9 @@ class GeoFormerBase(nn.Module):
                                           mc.dec_ffn_dim, mc.dec_dropout)
         _, _, num_gen = dynamic_param_sizes(m, use_coords=True)
         self.controller_head = Controller(mc.dec_dim, m, num_gen)
-        self.geodesic_passes = []  # (coarse sweeps, fine sweeps) per scene, last forward
+        # sweeps of the last forward's solve, per scene: (coarse, fine) of the
+        # two-level solver, or the exact solver's sweeps
+        self.geodesic_passes = []
         # a dict to collect per-stage wall ms of the next forwards (each stage
         # ends in a device synchronize); None = off, no synchronizing
         self.stage_ms = None
@@ -339,7 +337,11 @@ class GeoFormerBase(nn.Module):
     def forward_backbone(self, batch):
         mc = self.mc
         caps = voxel_capacities(mc.max_voxels, mc.depth, mc.voxel_decay)
-        plan = build_grid_plan(batch["coords"], batch["point_mask"], mc.spatial, mc.depth, caps)
+        # the compact slot tables, as in JAX, only without bricks (bricks are
+        # an exact layout of the 27-offset conv, which the rulebook computes)
+        compact = mc.subm_k < 27 and not mc.brick_occupancy
+        plan = build_grid_plan(batch["coords"], batch["point_mask"], mc.spatial, mc.depth, caps,
+                               subm_k=mc.subm_k if compact else None)
         feats = batch["feats"]
         if mc.use_coords:
             feats = torch.cat([feats, batch["points"]], dim=-1)
@@ -393,22 +395,23 @@ class GeoFormerBase(nn.Module):
     @torch.no_grad()
     def forward_geodesic(self, fg_locs, fg_valid, context_inds, context_valid,
                          train: bool = False):
-        """Radius-kNN graph + two-level geodesic solve -> (geo [B,F,Qr],
-        n_radius_cell_overflow [B], n_radius_window_overflow [B]). Training
-        takes ``geodesic_steps_train`` coarse steps, eval
-        ``geodesic_steps_eval``. The graph is built for the whole scene on
-        every rank of a model group; the solve runs the seed columns of
-        this rank's queries Qr (``query_slice``; all Q without a model
-        axis): the columns are independent, so the table is the same
-        columns of the one-process table."""
+        """Radius-kNN graph + geodesic solve -> (geo [B,F,Qr],
+        n_radius_cell_overflow [B], n_radius_window_overflow [B]): the
+        two-level solver (``geodesic_hier``) or the exact one, in float32
+        or int16 (``geodesic_int16``). Training takes
+        ``geodesic_steps_train`` steps, eval ``geodesic_steps_eval``. The
+        graph is built for the whole scene on every rank of a model group;
+        the solve runs the seed columns of this rank's queries Qr
+        (``query_slice``; all Q without a model axis): the columns are
+        independent, so the table is the same columns of the one-process
+        table."""
         mc = self.mc
-        if not mc.geodesic_hier:
-            raise NotImplementedError("only the hierarchical geodesic solver is ported")
         q = mc.n_query_points
         k_graph = mc.knn_neighbors
-        if mc.geodesic_fine_k:
-            # the solver reads only the nearest max(fine_k, k_sub) slots and
-            # radius_knn packs ascending: a narrower table is identical
+        if mc.geodesic_hier and mc.geodesic_fine_k:
+            # the two-level solver reads only the nearest max(fine_k, k_sub)
+            # slots and radius_knn packs ascending: a narrower table is
+            # identical; the exact solver takes the whole table
             k_graph = min(k_graph, max(mc.geodesic_fine_k, mc.geodesic_k_sub))
         d2, nbr_i, graph_ovf, graph_wovf = radius_knn(
             fg_locs, fg_valid, mc.geodesic_radius, k_graph,
@@ -416,15 +419,25 @@ class GeoFormerBase(nn.Module):
             window=mc.knn_window, cellwin=mc.knn_cellwin,
             dense_grid=mc.knn_dense_grid, select=mc.knn_select)
         self._stage("radius_graph")
-        nbr_d = torch.sqrt(d2.clamp(max=4.0).clamp(min=0.0))
+        # edge lengths rounded once from a float64 root: PyTorch's vectorised
+        # float32 sqrt on the CPU is 1 ulp off on ~0.6 % of inputs, where
+        # XLA's and CUDA's are correctly rounded
+        nbr_d = torch.sqrt(d2.clamp(max=4.0).clamp(min=0.0).double()).to(d2.dtype)
         rows = query_slice(q)
-        geo, self.geodesic_passes = geodesic_distance_hier(
-            nbr_i, nbr_d, context_inds[:, :q][:, rows], context_valid[:, :q][:, rows], fg_valid,
-            mc.geodesic_radius, mc.geodesic_steps_train if train else mc.geodesic_steps_eval,
-            fg_locs,
-            fine_sweeps=mc.geodesic_fine_sweeps, cell_factor=mc.geodesic_cell_factor,
-            k_sub=mc.geodesic_k_sub, fine_k=mc.geodesic_fine_k or None,
-            coarse_eps=mc.geodesic_coarse_eps)
+        seeds, seed_mask = context_inds[:, :q][:, rows], context_valid[:, :q][:, rows]
+        steps = mc.geodesic_steps_train if train else mc.geodesic_steps_eval
+        if mc.geodesic_hier:
+            geo, self.geodesic_passes = geodesic_distance_hier(
+                nbr_i, nbr_d, seeds, seed_mask, fg_valid, mc.geodesic_radius, steps, fg_locs,
+                fine_sweeps=mc.geodesic_fine_sweeps, cell_factor=mc.geodesic_cell_factor,
+                k_sub=mc.geodesic_k_sub, fine_k=mc.geodesic_fine_k or None,
+                coarse_eps=mc.geodesic_coarse_eps)
+        else:
+            # no reverse edges: the radius-kNN graph is symmetric up to the
+            # k cap, as the JAX model has it
+            geo, self.geodesic_passes = geodesic_distance(
+                nbr_i, nbr_d, seeds, seed_mask, fg_valid, mc.geodesic_radius, steps,
+                symmetrize=False, positions=fg_locs, int16=mc.geodesic_int16)
         return geo, graph_ovf, graph_wovf
 
     # ---------------- decoder ----------------

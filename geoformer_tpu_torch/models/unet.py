@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from geoformer_tpu_torch.models.blocks import MaskedBatchNorm, MultiHeadSelfAttention, SimpleNorm
-from geoformer_tpu_torch.ops.sparse_conv import GridPlan, dense_1x1, down_conv, subm_conv, up_conv
+from geoformer_tpu_torch.ops.sparse_conv import GridPlan, apply_subm, dense_1x1, down_conv, up_conv
 
 
 def _conv_param(*shape) -> nn.Parameter:
@@ -56,9 +56,9 @@ class ResidualBlock(nn.Module):
     def forward(self, feats, nbr, vmask):
         identity = feats if self.i_branch is None else dense_1x1(feats, self.i_branch)
         x = F.relu(self.MaskedBatchNorm_0(feats, vmask))
-        x = subm_conv(x, nbr, self.conv1, self.compute_dtype)
+        x = apply_subm(x, nbr, self.conv1, self.compute_dtype)
         x = F.relu(self.MaskedBatchNorm_1(x, vmask))
-        x = subm_conv(x, nbr, self.conv2, self.compute_dtype)
+        x = apply_subm(x, nbr, self.conv2, self.compute_dtype)
         return torch.where(vmask[..., None], x + identity, 0.0)
 
 
@@ -75,6 +75,12 @@ def _stats_frozen(block: nn.Module):
     finally:
         for bn in bns:
             bn.update_stats = True
+
+
+def _level_nbr(plan: GridPlan, lvl: int):
+    """The subm rulebook of a level: its compacted (idx, oid) table where the
+    plan has them (tpu_subm_k < 27), else its [B,V,27] map."""
+    return plan.subm_compact[lvl] if plan.subm_compact else plan.subm[lvl]
 
 
 def _remat_contexts(block: nn.Module):
@@ -157,7 +163,7 @@ class UBlock(nn.Module):
 
     def forward(self, x, plan: GridPlan):
         lvl = self.level
-        nbr = plan.subm[lvl]
+        nbr = _level_nbr(plan, lvl)
         vmask = plan.grids[lvl].voxel_mask
         for i in range(self.block_reps):
             x = self._block(f"block{i}", x, nbr, vmask)
@@ -196,7 +202,7 @@ class SparseUNetBackbone(nn.Module):
 
     def forward(self, voxel_feats, plan: GridPlan):
         vmask0 = plan.grids[0].voxel_mask
-        x = subm_conv(voxel_feats, plan.subm[0], self.input_conv, self.compute_dtype)
+        x = apply_subm(voxel_feats, _level_nbr(plan, 0), self.input_conv, self.compute_dtype)
         x = torch.where(vmask0[..., None], x, 0.0)
         x = self.unet(x, plan)
         return F.relu(self.output_bn(x, vmask0))

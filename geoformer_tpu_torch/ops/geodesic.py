@@ -1,17 +1,20 @@
-"""Two-level geodesic distance field (port of geoformer_tpu/ops/geodesic.py,
-the hierarchical solver: _prep_edges .. geodesic_distance_hier).
+"""Geodesic distance field (port of geoformer_tpu/ops/geodesic.py): the
+exact solver (``symmetrize_graph``, ``_geodesic_scene``,
+``geodesic_distance``, float32 or int16 fixed point) and the two-level one
+(``_prep_edges`` .. ``geodesic_distance_hier``).
 
-Multi-source shortest paths on the radius-kNN graph, laid out [P, Q]. A
-coarse cell graph is solved to a fixpoint by fast sweeping over 4 orderings,
-prolonged to the points, then smoothed by a fixed number of fine sweeps.
-The sweep schedule is the JAX one, because the values depend on it:
-512-row blocks, Jacobi inside a block (every slab of a block reads the
-distances as they were before the block), blocks in order, forward then
-backward, edge slots in slabs of 8. The JAX ``while_loop`` exits become
-Python loops that read one flag from the device per pass. Unreached points
-keep -1. Dead edges point at an explicit INF sink row.
-
-The exact solver (``geodesic_distance``) is left for a later slice.
+Multi-source shortest paths on the radius-kNN graph, laid out [P, Q]. The
+exact solver relaxes the whole point graph, in a spatial sweep order, until
+a forward + backward pass pair changes nothing or a cap of sweeps is
+reached. The two-level solver solves a coarse cell graph to a fixpoint by
+fast sweeping over 4 orderings, prolongs it to the points, then smooths it
+by a fixed number of fine sweeps. The sweep schedule is the JAX one,
+because the values depend on it: 512-row blocks, Jacobi inside a block
+(every slab of a block reads the distances as they were before the block),
+blocks in order, forward then backward, edge slots in slabs of 8. The JAX
+``while_loop`` exits become Python loops that read one flag from the
+device per pass. Unreached points keep -1. Dead edges point at an explicit
+INF sink row.
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ from geoformer_tpu_torch.ops.radius_graph import cell_coords
 from geoformer_tpu_torch.ops.voxelize import _voxelize_scene
 
 INF = 3e38
+# the exact solver's int16 fixed point: RS units a metre (a power of two,
+# ~1 mm), INF_I the unreached sentinel (32 m of range)
+RS = 1024.0
+INF_I = 32767
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:
@@ -63,19 +70,26 @@ def _live_slabs(w2: torch.Tensor, slab: int = 8) -> int:
     return min((last_live + slab) // slab, w2.shape[1] // slab)
 
 
-def _block_sweeps(nb2, w2, dist, n_steps, block_size, n_live=None):
+def _block_sweeps(nb2, w2, dist, n_steps, block_size, n_live=None, int16=False):
     """Alternating forward/backward block sweeps over a padded sorted edge
     table. nb2/w2 [PP, K2] (sink row = PP, K2 a multiple of 8), dist
     [PP+1, Q]. Runs until a pass pair changes nothing or n_steps sweeps
     (a pass pair counts 2). Returns (dist, sweeps run). ``dist`` is updated
     in place. n_live bounds the sweeps to the first n_live rows (valid
-    nodes are packed first wherever it is passed)."""
+    nodes are packed first wherever it is passed).
+
+    With ``int16`` dist is the exact solver's fixed-point table (RS units a
+    metre, INF_I unreached) and w2 stays the float weights, rounded here to
+    the nearest unit (half to even, as ``jnp.round``): each relaxation
+    widens to int32 for the add and clamps back at INF_I."""
     pp = nb2.shape[0]
     n_blocks = pp // block_size
     if n_live is not None:
         n_blocks = min((n_live + block_size - 1) // block_size, n_blocks)
     slab = 8
     n_slabs = _live_slabs(w2, slab)
+    if int16:
+        w2 = torch.where(w2 < INF, torch.round(w2 * RS), float(INF_I)).to(torch.int32)
 
     def block_relax(b):
         base = b * block_size
@@ -84,7 +98,11 @@ def _block_sweeps(nb2, w2, dist, n_steps, block_size, n_live=None):
         dacc = dist[rows].clone()
         for si in range(n_slabs):
             cols = slice(si * slab, (si + 1) * slab)
-            cand = (dist[nb_b[:, cols]] + w_b[:, cols, None]).amin(dim=1)
+            if int16:
+                cand = (dist[nb_b[:, cols]].int() + w_b[:, cols, None]).amin(dim=1)
+                cand = cand.clamp(max=INF_I).to(torch.int16)
+            else:
+                cand = (dist[nb_b[:, cols]] + w_b[:, cols, None]).amin(dim=1)
             dacc = torch.minimum(dacc, cand)
         dist[rows] = dacc
 
@@ -279,3 +297,97 @@ def geodesic_distance_hier(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radi
         dists.append(d)
         passes.append((ci, fi))
     return torch.stack(dists), passes
+
+
+def symmetrize_graph(nbr_idx, w, rev_slots=None):
+    """Append reverse edges to a forward kNN table.
+
+    nbr_idx [P,K] (dead edges -> P), w [P,K] (dead -> INF) -> (nbr2
+    [P,K+R], w2 [P,K+R]). Reverse edges are grouped by destination by one
+    stable sort (the rank within a destination depends on it); a
+    destination with more than R = rev_slots (default K) in-edges drops the
+    overflow, as the JAX function does: those edges still exist forward."""
+    p, k = nbr_idx.shape
+    r = rev_slots or k
+    dev = nbr_idx.device
+    wf = w.reshape(-1)
+    dst = torch.where(wf < INF, nbr_idx.reshape(-1), p)
+    src = torch.arange(p, device=dev).repeat_interleave(k)
+    sdst, order = torch.sort(dst, stable=True)
+    ssrc, sw = src[order], wf[order]
+    # within-destination rank: position - start of the destination's run
+    starts = torch.searchsorted(sdst, torch.arange(p + 1, device=dev), side="left")
+    rank = torch.arange(p * k, device=dev) - starts[sdst]
+    ok = (sdst < p) & (rank < r)
+    slot = torch.where(ok, sdst * r + rank, p * r)  # unique where ok
+    rev_i = torch.full((p * r + 1,), p, dtype=nbr_idx.dtype, device=dev)
+    rev_i[slot] = torch.where(ok, ssrc, p).to(nbr_idx.dtype)  # the sink slot is dropped below
+    rev_w = torch.full((p * r + 1,), INF, dtype=w.dtype, device=dev)
+    rev_w[slot] = torch.where(ok, sw, INF)
+    return (torch.cat([nbr_idx, rev_i[: p * r].reshape(p, r)], dim=1),
+            torch.cat([w, rev_w[: p * r].reshape(p, r)], dim=1))
+
+
+def _geodesic_scene(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, n_steps,
+                    rev_slots=None, symmetrize=True, positions=None, block_size=512,
+                    int16=False):
+    """Exact solve of one scene -> (dist [P,Q] (-1 unreached), sweeps run).
+
+    The gated edges (optionally with their reverse edges) are remapped into
+    the sweep order, the points sorted along a spatial key at 4x the radius
+    (identity without positions), and relaxed by ``_block_sweeps`` in float
+    or in int16 fixed point. Every step is one add and a min, so the table
+    is bit-equal to the JAX one's."""
+    p = nbr_idx.shape[0]
+    q = seeds.shape[0]
+    dev = nbr_idx.device
+    nb, w = _prep_edges(nbr_idx, nbr_dist, point_mask, radius)
+    if symmetrize:
+        nb, w = symmetrize_graph(nb, w, rev_slots)
+    if positions is not None:
+        perm = _spatial_order(positions, point_mask, max(radius, 1e-4) * 4)
+    else:
+        perm = torch.arange(p, device=dev)
+    inv = _invert_perm(perm)
+    nb_s = F.pad(inv, (0, 1), value=p)[nb[perm]]  # edges into sorted space
+    nb2, w2, pp = _pad_edges(nb_s, w[perm], p, block_size)
+
+    if int16:
+        dist = torch.full((pp + 1, q), INF_I, dtype=torch.int16, device=dev)
+    else:
+        dist = torch.full((pp + 1, q), INF, dtype=w.dtype, device=dev)
+    # one entry a column; a masked seed writes the sink row, as in JAX
+    safe_seeds = torch.where(seed_mask, inv[seeds.clamp(0, p - 1)], pp)
+    dist[safe_seeds, torch.arange(q, device=dev)] = 0
+    dist, sweeps = _block_sweeps(nb2, w2, dist, n_steps, block_size, int16=int16)
+
+    dist = dist[inv]  # back to the original point order
+    if int16:
+        reached = (dist < INF_I) & point_mask[:, None]
+        return torch.where(reached, dist.to(w.dtype) / RS, -1.0), sweeps
+    reached = (dist < INF * 0.5) & point_mask[:, None]
+    return torch.where(reached, dist, -1.0), sweeps
+
+
+def geodesic_distance(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, n_steps,
+                      rev_slots=None, symmetrize=True, positions=None, int16=False):
+    """Batched exact multi-source geodesics over a kNN graph.
+
+    nbr_idx [B,P,K] neighbour ids (self excluded), nbr_dist [B,P,K]
+    euclidean (not squared) edge lengths, seeds [B,Q] point ids, seed_mask
+    [B,Q], point_mask [B,P], positions [B,P,3] or None (identity sweep
+    order) -> (geo [B,P,Q], -1 where unreached; sweeps run per scene).
+
+    rev_slots caps the reverse-edge bucket of a node (default K) when
+    ``symmetrize``. ``int16`` relaxes in fixed point (the JAX
+    ``relax_dtype=jnp.int16``): 1/1024 m units, 32 m of range. Seed
+    columns are independent: a column at its fixpoint no longer changes,
+    so any split of the columns gives the columns of the whole."""
+    dists, sweeps = [], []
+    for b in range(nbr_idx.shape[0]):
+        d, s = _geodesic_scene(
+            nbr_idx[b], nbr_dist[b], seeds[b], seed_mask[b], point_mask[b], radius, n_steps,
+            rev_slots, symmetrize, None if positions is None else positions[b], int16=int16)
+        dists.append(d)
+        sweeps.append(s)
+    return torch.stack(dists), sweeps

@@ -1,10 +1,18 @@
 """Sparse 3D convolution as rulebook gather + GEMM (port of
-geoformer_tpu/ops/sparse_conv.py, rulebook form only).
+geoformer_tpu/ops/sparse_conv.py, rulebook form and compact slot tables).
 
 The JAX package also builds dense-brick plans (ops/brick.py) for the TPU's
 layout; those equal the rulebook path while no brick overflows and are not
 ported: on the card the gather/GEMM/scatter-free rulebook form is the
 natural one. ``plan_stats`` reports ``n_brick_overflow`` as zeros.
+
+``tpu_subm_k`` < 27 without bricks builds the JAX module's compact slot
+tables (``compact_subm_neighbors``: the live neighbours packed first, those
+past the k-th dropped). ``subm_conv_compact`` expands a table back to a
+27-slot map whose dropped offsets read the zero row and runs the rulebook
+conv on it: the same sums as JAX's one-hot routing (one weight a live
+slot), with no [V, k, Cin, Cout] per-slot weights, and one conv code path
+(its chunking, bf16 narrowing and ``take_rows`` backward) for both tables.
 
 ``compute_dtype=torch.bfloat16`` (the configs' ``tpu_compute_dtype: bfloat16``)
 narrows features before each gather and weights before each product, as
@@ -119,6 +127,39 @@ def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def compact_subm_neighbors(nbr: torch.Tensor, k: int):
+    """Pack live neighbour slots first: [B,V,27] -> (idx [B,V,k], oid
+    [B,V,k]). oid is the offset index of each slot (27 = dead); offsets
+    beyond the k-th live neighbour are dropped (exact while a voxel's live
+    count is <= k)."""
+    v = nbr.shape[1]
+    ok = nbr < v
+    sel = torch.argsort((~ok).to(torch.uint8), dim=-1, stable=True)[..., :k]
+    idx = torch.gather(nbr, -1, sel)
+    oid = torch.where(torch.gather(ok, -1, sel), sel, 27)
+    return torch.where(oid < 27, idx, v), oid
+
+
+def subm_conv_compact(feats: torch.Tensor, idx: torch.Tensor, oid: torch.Tensor,
+                      w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """Submanifold conv over a compacted slot table (idx, oid [B,V,K], see
+    compact_subm_neighbors), w [27,Cin,Cout] -> [B,V,Cout] float32: each
+    slot's neighbour routed to its offset's weight. The table is expanded
+    to a 27-slot map (dropped offsets and dead slots -> the zero row V; the
+    dead slots land in a 28th column, cut off) for ``subm_conv``."""
+    v = feats.shape[1]
+    nbr = idx.new_full(idx.shape[:2] + (28,), v)
+    nbr.scatter_(2, oid, idx)
+    return subm_conv(feats, nbr[..., :27], w, compute_dtype)
+
+
+def apply_subm(feats, nbr, w, compute_dtype=None):
+    """Dispatch: a compacted (idx, oid) table or a [B,V,27] neighbour map."""
+    if isinstance(nbr, tuple):
+        return subm_conv_compact(feats, nbr[0], nbr[1], w, compute_dtype)
+    return subm_conv(feats, nbr, w, compute_dtype)
+
+
 def dense_1x1(feats: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """SubMConv3d kernel_size=1 (residual identity branch) == matmul."""
     return feats @ w
@@ -155,11 +196,13 @@ def up_conv(parent_feats: torch.Tensor, link: DownLink, w: torch.Tensor,
 class GridPlan(NamedTuple):
     """Per-forward connectivity for the whole U-Net, one entry per level:
     grids (level 0 = point-resolution voxels), subm [B,V_l,27] neighbor maps,
-    links[l] connecting level l -> l+1."""
+    links[l] connecting level l -> l+1, and subm_compact: () or the (idx,
+    oid) compacted tables of each level (build_grid_plan's subm_k)."""
 
     grids: tuple
     subm: tuple
     links: tuple
+    subm_compact: tuple = ()
 
 
 def plan_stats(plan: GridPlan) -> dict:
@@ -191,9 +234,11 @@ def voxel_capacities(v0: int, depth: int, decay: float = 0.5, floor: int = 64) -
 
 
 def build_grid_plan(coords: torch.Tensor, mask: torch.Tensor, spatial: int, depth: int,
-                    caps: list[int]) -> GridPlan:
+                    caps: list[int], subm_k: int | None = None) -> GridPlan:
     """Build all rulebooks for a forward pass. coords [B,P,3] int point grid
-    coords, mask [B,P], caps[l] = V_l."""
+    coords, mask [B,P], caps[l] = V_l. subm_k < 27 also builds the
+    compacted slot tables, which the U-Net then convolves over (exact while
+    every voxel's live neighbour count is <= subm_k)."""
     assert len(caps) == depth
     grids = [voxelize(coords, mask, caps[0], spatial)]
     links = []
@@ -208,4 +253,8 @@ def build_grid_plan(coords: torch.Tensor, mask: torch.Tensor, spatial: int, dept
     for lvl in range(depth):
         subm.append(build_subm_neighbors(grids[lvl], s))
         s //= 2
-    return GridPlan(grids=tuple(grids), subm=tuple(subm), links=tuple(links))
+    compact = ()
+    if subm_k is not None and subm_k < 27:
+        compact = tuple(compact_subm_neighbors(n, subm_k) for n in subm)
+    return GridPlan(grids=tuple(grids), subm=tuple(subm), links=tuple(links),
+                    subm_compact=compact)

@@ -80,6 +80,23 @@ def test_plain_matches_jax_at_threshold_ties_and_exhausted_rows(w):
     assert (~live).any() and live.any()
 
 
+def test_plain_matches_jax_on_the_exact_solvers_table():
+    """W = 648, k = 64 (the exact geodesic solver's graph, where the card
+    kernel leaves its warp path for the exact path): the corner rows
+    (ties, 8 equal values then dead lanes, fewer than k live lanes, fully
+    dead rows), NaN rows left out, exactly equal to lax.top_k."""
+    (_, d2, cand, k), = [c for c in knn_cases() if c[0] == "w648_k64"]
+    keep = ~np.isnan(d2).any(1)
+    d2, cand = d2[keep], cand[keep]
+    got_v, got_i = select_min_k_cand(torch.from_numpy(d2), torch.from_numpy(cand), k)
+    neg, pos = jax.lax.top_k(-jnp.asarray(d2), k)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(-neg))
+    np.testing.assert_array_equal(
+        got_i.numpy(), np.asarray(jnp.take_along_axis(jnp.asarray(cand), pos, axis=1)))
+    live = (got_v.numpy() < 1e30).sum(1)
+    assert (live < k).any() and (live == k).any()
+
+
 def _jit_exact(f, *args):
     """f(*args) compiled by XLA without backend optimisation: one program,
     with the rounding of op-by-op execution (no contracted multiply-adds)."""
@@ -153,5 +170,5 @@ def test_kernel_matches_plain_on_corner_cases(cuda):
         assert torch.equal(kv.view(torch.int32), pv.view(torch.int32)), name
         assert torch.equal(ki, pi), name
         exact[name] = int(rows)
-    assert exact["w70_k70"] == exact["w1024_k1024"] == 32  # k > 32: every row
+    assert exact["w70_k70"] == exact["w648_k64"] == exact["w1024_k1024"] == 32  # k > 32
     assert exact["w648_k16"] > 0 and exact["w648_k1"] == 0

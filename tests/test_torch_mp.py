@@ -26,9 +26,6 @@ round by their thread count):
   ``generate_proposal`` does not gate by query validity. On two data ranks
   (one scene each) and on 1x2 (the invalid slots all on model index 1) the
   eval outputs equal one process's exactly.
-
-``tpu_subm_k`` < 27 with ``tpu_brick_occupancy: 0`` (the JAX compact conv)
-raises NotImplementedError where the model is built.
 """
 
 import numpy as np
@@ -77,15 +74,6 @@ def test_layout_is_jax_reshape(world, model_parallel):
             assert query_slice(12) == slice(m * per, (m + 1) * per)
             assert query_slice(12 * model_parallel + 1) == slice(0, 12 * model_parallel + 1)
             assert replica_weight() == (1.0 if m == 0 else 0.0)
-
-
-def test_compact_subm_conv_raises(tiny_cfg):
-    """tpu_subm_k < 27 with no bricks selects the JAX package's compact slot
-    tables, which the port does not have: building the model raises."""
-    cfg = port_config(tiny_cfg, tpu_subm_k=9, tpu_brick_occupancy=0)
-    with pytest.raises(NotImplementedError, match="compact submanifold conv"):
-        GeoFormer(ModelConfig.from_cfg(cfg))
-    GeoFormer(ModelConfig.from_cfg(port_config(tiny_cfg, tpu_subm_k=9)))  # bricks: exact
 
 
 def _eval_task(cfg, sd, batch, model_parallel):

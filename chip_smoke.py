@@ -53,6 +53,20 @@ directory that lacks the port's package. It
    config/test_geoformer_fs_scannet.yaml settings (run_num cut to 2). Each
    must end in a finite AP table with every capacity counter at 0 and must
    launch K1 and K2;
+   then ``library``: the library ops at the shapes of a real scene on
+   synthetic inputs, each held against the port's own CPU run on the same
+   inputs (``knn`` at [1, 131072] x [1, 131072], k = 16, its CPU run on the
+   first LIB_CPU_ROWS queries; ``three_nn`` + ``three_interpolate`` from
+   2,048 centers to 50,000 points, C = 128; ``sec_*``, ``roipool`` and its
+   gradient over 131,072 x 32 rows in 256 segments, one empty;
+   ``get_iou`` and ``greedy_nms`` over [256, 250000] proposal masks and 40
+   instances; ``bfs_cluster`` over 131,072 points at PointGroup's settings,
+   the CPU on LIB_CPU_ROWS rows of its ball query and on the card's
+   table), the native elastic (its library must build) against the
+   numpy/scipy fallback on this host, and cli.test with save_semantic: True
+   and --profile_dir, counted: its PLY/OBJ files, their semantic labels equal to
+   the run's argmax, a trace naming K1's and K2's kernels, and K1's and K2's
+   launches equal to the plain cli.test run's;
 9. holds K3 against its plain version at the probe's shape and at the
    forward's foreground gather, K2 at the two shapes of the few-shot
    path (support instance, 20,000-point aggregator) and K1 at the few-shot
@@ -129,6 +143,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -208,14 +224,19 @@ def check_finite(torch, name, t) -> None:
         fail(f"{name} has non-finite values")
 
 
-def wall_forward_ms(torch, engine, batch) -> float:
-    """Host-clock ms of one eval_batch, from a synchronized start to a
-    synchronize after its last device work."""
+def timed(torch, fn):
+    """(fn(), host-clock ms), from a synchronized start to a synchronize
+    after its last device work."""
     torch.cuda.synchronize()
     t = time.perf_counter()
-    engine.eval_batch(batch)
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def wall_forward_ms(torch, engine, batch) -> float:
+    """Host-clock ms of one eval_batch."""
+    return timed(torch, lambda: engine.eval_batch(batch))[1]
 
 
 def profile_forward(torch, engine, batch) -> None:
@@ -400,10 +421,11 @@ def write_smoke_data(torch, cfg_mod, Engine, here) -> dict:
     return {"cfgs": cfgs, "paths": paths}
 
 
-def run_driver(torch, name, main, paths, counters, label=None) -> dict:
-    """One eval driver from its command line, with the kernels' launch
-    counts set to 0 just before and read just after. ``label`` names the
-    run (its phase and experiment directory) when it is not ``name``."""
+def run_driver(torch, name, main, paths, counters, label=None, extra=()) -> dict:
+    """One eval driver from its command line (plus ``extra`` arguments),
+    with the kernels' launch counts set to 0 just before and read just
+    after. ``label`` names the run (its phase and experiment directory) when
+    it is not ``name``."""
     label = label or name
     for fn in counters.values():
         fn.launches = 0
@@ -413,7 +435,7 @@ def run_driver(torch, name, main, paths, counters, label=None) -> dict:
     t0 = time.time()
     summary = main(["--config", paths["config"], "--pretrain", paths["ckpt"],
                     "--output_path", os.path.join(os.path.dirname(paths["config"]), "exp"),
-                    "--exp_name", label])
+                    "--exp_name", label, *extra])
     torch.cuda.synchronize()
     seconds = time.time() - t0
     counters["fps"].capture = None
@@ -874,6 +896,341 @@ def offpath(torch, cfg_mod, Engine, synthetic_batch, counters) -> dict:
     emit({"phase": "offpath_done", "seconds": time.time() - t0})
     return {"by_path": {f"offpath_{name}": r["res"]["launches"] for name, r in runs.items()},
             "k1": row}
+
+
+# ---------------- the library ops and host tools ----------------
+
+# library: the seed of its synthetic inputs, and the queries (of 131,072) and
+# ball-query centers whose rows the CPU recomputes (a row of kNN or of the
+# dense ball query depends on its own query and all points only)
+LIB_SEED = 11
+LIB_CPU_ROWS = 2048
+# the shapes of a real scene: the forward's 131,072 foreground points, the
+# aggregator's 2,048 centers among 50,000 points, a 250,000-point scene with
+# 256 proposals and 40 instances
+LIB_SIZES = {"fg": 131072, "centers": 2048, "agg_points": 50000, "channels": 128,
+             "segment_channels": 32, "segments": 256, "scene": 250000, "proposals": 256,
+             "instances": 40}
+# bfs_cluster at PointGroup's settings
+LIB_CLUSTER = {"radius": 0.03, "nsample": 64, "min_cluster": 50}
+
+
+def on(tensors, device):
+    return [t.to(device) for t in tensors]
+
+
+def near_tie_rows(torch, queries, points, got_i, want_i, k) -> tuple:
+    """Rows where two kNN index lists differ -> (their number, whether each
+    sits at a near-tie: the exact float64 gap between the k-th and
+    (k+1)-th neighbour under 1e-5 relative, which the matmul trick's
+    rounding can swap)."""
+    rows = torch.nonzero((got_i != want_i).any(-1)).flatten().tolist()
+    ok = True
+    p = points.double()
+    for r in rows:
+        d = ((p - queries[r].double()) ** 2).sum(-1)
+        kth, nxt = torch.sort(d)[0][k - 1:k + 1].tolist()
+        ok &= nxt - kth <= 1e-5 * max(kth, 1e-12)
+    return len(rows), ok
+
+
+def lib_emit(name: str, equal: bool, failure: str = "on the card disagrees with the CPU run",
+             **res) -> dict:
+    res = {"phase": f"library_{name}", "equal": bool(equal), **res}
+    emit(res)
+    if not equal:
+        fail(f"library: {name} {failure}")
+    return res
+
+
+def library_knn(torch, rng) -> dict:
+    """knn at [1, 131072] queries x [1, 131072] points, k = 16 (the size of
+    the radius graph that the reference's FAISS call served): the points of
+    a room scan queried against themselves. The CPU recomputes the first
+    LIB_CPU_ROWS rows."""
+    from geoformer_tpu_torch.ops.knn import knn
+    from geoformer_tpu_torch.synthetic import room_points
+
+    k, n = 16, LIB_SIZES["fg"]
+    pts = torch.from_numpy(room_points(rng, n))[None]
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    gp, gm = on((pts, mask), "cuda")
+    (gd, gi), ms = timed(torch, lambda: knn(gp, gp, gm, k))
+    (cd, ci), cpu_ms = timed(torch, lambda: knn(pts[:, :LIB_CPU_ROWS], pts, mask, k))
+    gd, gi = gd[0, :LIB_CPU_ROWS].cpu(), gi[0, :LIB_CPU_ROWS].cpu()
+    n_ties, ties_ok = near_tie_rows(torch, pts[0], pts[0], gi, ci[0], k)
+    same = gi == ci[0]
+    err = float(((gd - cd[0]).abs() / cd[0].abs().clamp(min=1e-30))[same].max())
+    return lib_emit("knn", ties_ok and err <= 1e-6, shape=[1, n, n, k],
+                    ms=ms, cpu_ms=cpu_ms, cpu_rows=LIB_CPU_ROWS, near_tie_rows=n_ties,
+                    max_rel_err_d2=err, tol="ids equal but at near-ties; d2 rtol 1e-6")
+
+
+def library_interpolate(torch, rng) -> dict:
+    """three_nn + three_interpolate from 2,048 centers to 50,000 points of a
+    room scan, C = 128, on the card and on the CPU."""
+    from geoformer_tpu_torch.ops import interpolate
+    from geoformer_tpu_torch.synthetic import room_points
+
+    n, m, c = LIB_SIZES["agg_points"], LIB_SIZES["centers"], LIB_SIZES["channels"]
+    pts = room_points(rng, n)
+    unknown = torch.from_numpy(pts)[None]
+    known = torch.from_numpy(pts[rng.choice(n, m, replace=False)])[None]
+    kmask = torch.ones(1, m, dtype=torch.bool)
+    feats = torch.from_numpy(rng.normal(size=(1, c, m)).astype(np.float32))
+
+    def run(u, kn, km, f):
+        d, i = interpolate.three_nn(u, kn, km)
+        return d, i, interpolate.three_interpolate(f, i, interpolate.three_interpolate_weights(d))
+
+    (gd, gi, go), ms = timed(torch, lambda: run(*on((unknown, known, kmask, feats), "cuda")))
+    (cd, ci, co), cpu_ms = timed(torch, lambda: run(unknown, known, kmask, feats))
+    gd, gi, go = gd.cpu(), gi.cpu(), go.cpu()
+    n_ties, ties_ok = near_tie_rows(torch, unknown[0], known[0], gi[0], ci[0], 3)
+    same = (gi == ci).all(-1)[0]
+    d_err = float(((gd - cd).abs() / cd.abs().clamp(min=1e-30))[0][same].max())
+    out_ok = torch.allclose(go[0][:, same], co[0][:, same], rtol=1e-5, atol=1e-6)
+    return lib_emit("interpolate", ties_ok and d_err <= 1e-6 and out_ok,
+                    shape={"unknown": n, "known": m, "channels": c}, ms=ms,
+                    cpu_ms=cpu_ms, near_tie_rows=n_ties, max_rel_err_dist=d_err,
+                    max_abs_err_out=float((go - co).abs().max()),
+                    tol="ids as knn; dist rtol 1e-6; out rtol 1e-5, atol 1e-6")
+
+
+def library_segments(torch, rng) -> dict:
+    """sec_mean / sec_min / sec_max / roipool and roipool's gradient over
+    131,072 rows x 32 channels in 256 segments, one of them empty, with
+    overflow rows after the last offset."""
+    from geoformer_tpu_torch.ops import segment_ops
+
+    n, c, m = LIB_SIZES["fg"], LIB_SIZES["segment_channels"], LIB_SIZES["segments"]
+    sizes = rng.integers(0, 2 * n // m, m)
+    sizes[m // 2] = 0
+    sizes = (sizes * (n - n // 128) / sizes.sum()).astype(np.int64)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]))
+    feats = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(m, c)).astype(np.float32))
+
+    def run(f, o, up):
+        f = f.clone().requires_grad_(True)
+        outs = [segment_ops.sec_mean(f, o), segment_ops.sec_min(f, o), segment_ops.sec_max(f, o)]
+        pooled = segment_ops.roipool(f, o)
+        (pooled * up).sum().backward()
+        return [x.detach() for x in outs + [pooled]] + [f.grad]
+
+    got, ms = timed(torch, lambda: run(*on((feats, offsets, g), "cuda")))
+    want, cpu_ms = timed(torch, lambda: run(feats, offsets, g))
+    got = [x.cpu() for x in got]
+    exact = all(torch.equal(a, b) for a, b in zip(got[1:4], want[1:4]))
+    close = [torch.allclose(got[i], want[i], rtol=1e-6, atol=1e-6) for i in (0, 4)]
+    return lib_emit("segments", exact and all(close),
+                    shape=[n, c, m], empty_segments=int((sizes == 0).sum()),
+                    overflow_rows=n - int(offsets[-1]), ms=ms, cpu_ms=cpu_ms,
+                    min_max_roipool_equal=exact,
+                    max_abs_err_mean=float((got[0] - want[0]).abs().max()),
+                    max_abs_err_roipool_grad=float((got[4] - want[4]).abs().max()),
+                    tol="min/max/roipool exact; mean and roipool grad rtol 1e-6, atol 1e-6")
+
+
+def library_iou_nms(torch, rng) -> dict:
+    """get_iou and greedy_nms over [256, 250000] proposal masks (balls
+    around 40 instance centers of a room scan, jittered) and the 40
+    instances' masks; scores with ties, a tenth of the proposals invalid."""
+    from geoformer_tpu_torch.ops import nms, segment_ops
+    from geoformer_tpu_torch.synthetic import room_points
+
+    n, q, i = LIB_SIZES["scene"], LIB_SIZES["proposals"], LIB_SIZES["instances"]
+    pts = torch.from_numpy(room_points(rng, n))
+    centers = pts[torch.from_numpy(rng.choice(n, i, replace=False))]
+    inst = torch.cdist(centers, pts) < 0.3
+    pc = centers[torch.arange(q) % i] + torch.from_numpy(
+        rng.normal(0, 0.05, (q, 3)).astype(np.float32))
+    radius = torch.from_numpy(rng.uniform(0.2, 0.4, (q, 1)).astype(np.float32))
+    props = torch.cdist(pc, pts) < radius
+    scores = torch.from_numpy(np.round(rng.random(q), 2).astype(np.float32))
+    valid = torch.from_numpy(rng.random(q) > 0.1)
+
+    def run(p, i, s, v):
+        return segment_ops.get_iou(p, i), nms.greedy_nms(p, s, v, 0.3)
+
+    (giou, gkeep), ms = timed(torch, lambda: run(*on((props, inst, scores, valid), "cuda")))
+    (ciou, ckeep), cpu_ms = timed(torch, lambda: run(props, inst, scores, valid))
+    equal = torch.equal(giou.cpu(), ciou) and torch.equal(gkeep.cpu(), ckeep)
+    return lib_emit("iou_nms", equal, shape={"proposals": q, "points": n, "instances": i},
+                    ms=ms, cpu_ms=cpu_ms,
+                    kept=int(ckeep.sum()), valid=int(valid.sum()), tol="exact")
+
+
+def library_cluster(torch, rng) -> dict:
+    """bfs_cluster over 131,072 points of a shuffled 250,000-point room scan
+    with its surfaces' labels (floor, three walls, furniture boxes) at
+    PointGroup's settings. The CPU recomputes LIB_CPU_ROWS rows of the
+    dense ball query, then the clustering on the card's ball-query table.
+    Beside them: the components' time, and how many of their rounds change
+    the labels (a round that changes none is a fixed point)."""
+    from geoformer_tpu_torch.ops import cluster
+    from geoformer_tpu_torch.ops.ball_query import ball_query
+    from geoformer_tpu_torch.synthetic import room_scan
+
+    n = LIB_SIZES["fg"]
+    pts, part = room_scan(rng, LIB_SIZES["scene"])
+    keep = rng.permutation(LIB_SIZES["scene"])[:n]
+    points = torch.from_numpy(pts[keep])
+    sem = torch.from_numpy(part[keep].astype(np.int64))
+    valid = torch.ones(n, dtype=torch.bool)
+    r, ns, mc = LIB_CLUSTER["radius"], LIB_CLUSTER["nsample"], LIB_CLUSTER["min_cluster"]
+    gp, gs, gv = on((points, sem, valid), "cuda")
+    table, ball_ms = timed(torch, lambda: cluster.ballquery_dense(gp, gv, r, ns))
+    (groots, gkeep), ms = timed(torch, lambda: cluster.bfs_cluster(gs, gp, gv, r, ns, mc))
+    rows = torch.arange(LIB_CPU_ROWS)
+    (ci, ch), ball_cpu_ms = timed(torch, lambda: ball_query(
+        points[None, :LIB_CPU_ROWS], points[None], valid[None], r, ns))
+    ball_equal = torch.equal(table[0][rows].cpu(), ci[0]) and torch.equal(
+        table[2][rows].cpu(), ch[0])
+    card_table = tuple(t.cpu() for t in table)
+    dense = cluster.ballquery_dense
+    cluster.ballquery_dense = lambda *a: card_table
+    try:
+        (croots, ckeep), cpu_ms = timed(torch, lambda: cluster.bfs_cluster(
+            sem, points, valid, r, ns, mc))
+    finally:
+        cluster.ballquery_dense = dense
+    equal = ball_equal and torch.equal(groots.cpu(), croots) and torch.equal(gkeep.cpu(), ckeep)
+
+    # the components alone, and the rounds that change the labels
+    idx, _, nbr = table
+    fg = gv & (gs >= 0)
+    edge = nbr & (gs[idx] == gs[:, None]) & fg[:, None] & fg[idx]
+    cap = max(2 * n.bit_length(), 8)
+    _, cc_ms = timed(torch, lambda: cluster.connected_components(idx, edge, fg))
+    labels = labels0 = torch.arange(n, device=gp.device)
+    changing = 0
+    for _ in range(cap):
+        new = cluster._round(labels, idx, edge, fg, labels0)
+        changing += not torch.equal(new, labels)
+        labels = new
+    sizes = torch.bincount(croots[ckeep])
+    return lib_emit("cluster", equal, points=n, **LIB_CLUSTER, ms=ms, cpu_ms=cpu_ms,
+                    ballquery_ms=ball_ms, ballquery_cpu_ms_rows=ball_cpu_ms,
+                    cpu_rows=LIB_CPU_ROWS, rounds=cap, rounds_changing=changing,
+                    components_ms=cc_ms,
+                    clusters_kept=int((sizes > 0).sum()), points_kept=int(ckeep.sum()),
+                    tol="exact")
+
+
+def library_elastic(torch, cfg) -> dict:
+    """The native elastic (must be the path that runs: a failed g++ build
+    fails here) on one 250,000-point scene of the smoke dataset, timed
+    against the numpy/scipy fallback on this host, and the training scene
+    build (affine, two elastic passes, crop) on each path."""
+    import scipy.interpolate  # noqa: F401  (imported before the fallback's timing)
+    import scipy.ndimage  # noqa: F401
+
+    from geoformer_tpu_torch import native
+    from geoformer_tpu_torch.data.augment import elastic
+    from geoformer_tpu_torch.data.scannet import InstDataset
+
+    if not native.available():
+        fail(f"library: the native host library did not build: {native.build_error}")
+    ds = InstDataset(cfg, "val")
+    xyz = ds.load_raw(0)[0] * ds.scale
+
+    def passes():
+        rng = np.random.default_rng(LIB_SEED)
+        x = elastic(xyz, 6 * ds.scale // 50, 40 * ds.scale / 50, rng)
+        return elastic(x, 20 * ds.scale // 50, 160 * ds.scale / 50, rng)
+
+    def scene():
+        return ds.build_scene(0, np.random.default_rng(LIB_SEED), True)
+
+    got, ms = timed(torch, passes)
+    _, scene_ms = timed(torch, scene)
+    lib = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        want, scipy_ms = timed(torch, passes)
+        _, scene_scipy_ms = timed(torch, scene)
+    finally:
+        native.get_lib = lib
+    err = float(np.abs(got - want).max())
+    return lib_emit("elastic", err <= 1e-3, points=len(xyz), native=True, native_ms=ms,
+                    scipy_ms=scipy_ms, build_scene_native_ms=scene_ms,
+                    build_scene_scipy_ms=scene_scipy_ms, max_abs_diff_voxels=err,
+                    tol="native within 1e-3 voxel units of numpy/scipy")
+
+
+def ply_labels(path: str, palette) -> np.ndarray:
+    """The semantic labels a ``color_semantic`` PLY encodes (palette index
+    of each point's color)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    body = lines[lines.index("end_header") + 1:]
+    rgb = np.array([ln.split()[3:] for ln in body], np.int64)
+    key = lambda c: (c[..., 0] * 256 + c[..., 1]) * 256 + c[..., 2]
+    lookup = {int(k): i for i, k in enumerate(key(palette.astype(np.int64)))}
+    if len(lookup) != len(palette):
+        fail("library: the palette has repeated colors")
+    return np.array([lookup[int(k)] for k in key(rgb)], np.int64)
+
+
+def library_cli_test(torch, main, cfg, paths, counters, by_path, here) -> dict:
+    """cli.test on the smoke dataset with save_semantic: True and
+    --profile_dir, counted: per scene the semantic PLY (its labels those of the run's
+    argmax), the instance PLY and the boxes OBJ; the Chrome trace naming
+    K1's and K2's kernels; K1's and K2's launches equal to the plain
+    cli.test run's (path T)."""
+    from geoformer_tpu_torch.cli.test import label_digest
+    from geoformer_tpu_torch.utils.visualize import PALETTE
+
+    prof = fresh_dir(os.path.join(here, "build", "smoke_profile"))
+    # thresholds down, so that the random weights' proposals survive and the
+    # instance PLY and boxes OBJ are written (the kernels' work is the same)
+    config = write_yaml(os.path.join(os.path.dirname(paths["config"]), "test_profiled.yaml"),
+                        cfg.replace(TEST_SCORE_THRESH=0.0, TEST_NPOINT_THRESH=10,
+                                    TEST_NMS_THRESH=1e-4, save_semantic=True))
+    res = run_driver(torch, "test", main, dict(paths, config=config), counters,
+                     label="test_profiled", extra=["--profile_dir", prof])
+    result = os.path.join(os.path.dirname(paths["config"]), "exp", "test_profiled", "result")
+    files_ok, labels_ok = all(r["proposals"] for r in res["scenes"]), True
+    for rec in res["scenes"]:
+        base = os.path.join(result, rec["scene"])
+        files_ok &= all(os.path.exists(base + f) for f in ("_sem.ply", "_inst.ply", "_boxes.obj"))
+        labels_ok &= label_digest(ply_labels(base + "_sem.ply", PALETTE)) == rec["semantic_digest"]
+    with open(os.path.join(prof, "trace_rank0.json")) as f:
+        trace = f.read()
+    names = {k: k in trace for k in ("knn_select_kernel", "fps_kernel")}
+    same_launches = all(res["launches"][k] == by_path["driver_test"][k]
+                        for k in ("knn_select", "fps"))
+    out = lib_emit("cli_test", files_ok and labels_ok and all(names.values()) and same_launches,
+                   failure="failed a check of its files, its trace or its launches",
+                   files=files_ok, proposals=[r["proposals"] for r in res["scenes"]],
+                   semantic_labels_equal_argmax=labels_ok,
+                   trace_mb=len(trace) / 1e6, trace_names=names,
+                   launches={k: res["launches"][k] for k in ("knn_select", "fps")},
+                   launches_path_T={k: by_path["driver_test"][k] for k in ("knn_select", "fps")},
+                   seconds=res["seconds"])
+    out["launches_all"] = res["launches"]
+    return out
+
+
+def library(torch, cli_main, data, counters, by_path, here) -> dict:
+    """The library ops on the card at the shapes of a real scene, each held
+    against the port's own CPU run on the same inputs; the native elastic;
+    cli.test with save_semantic and --profile_dir. Returns the counted
+    cli.test run's launches."""
+    t0 = time.time()
+    rng = np.random.default_rng(LIB_SEED)
+    library_knn(torch, rng)
+    library_interpolate(torch, rng)
+    library_segments(torch, rng)
+    library_iou_nms(torch, rng)
+    library_cluster(torch, rng)
+    torch.cuda.empty_cache()
+    library_elastic(torch, data["cfgs"]["test"])
+    cli = library_cli_test(torch, cli_main, data["cfgs"]["test"], data["paths"]["test"],
+                           counters, by_path, here)
+    emit({"phase": "library_done", "seconds": time.time() - t0})
+    return cli["launches_all"]
 
 
 # ---------------- training paths ----------------
@@ -2546,6 +2903,9 @@ def main(argv=None) -> int:
     for name, main_fn in (("test", cli_test.main), ("test_fs", cli_test_fs.main)):
         by_path[f"driver_{name}"] = run_driver(
             torch, name, main_fn, data["paths"][name], counters)["launches"]
+
+    # the library ops, the native elastic and cli.test with its two flags
+    by_path["library_cli_test"] = library(torch, cli_test.main, data, counters, by_path, here)
 
     # the few-shot path's own K2 shapes (the support instance's 32 picks, the
     # 20,000-point aggregator) and its K1 table, captured from one support and

@@ -1,13 +1,14 @@
 """PyTorch/CUDA port of geoformer_tpu (the JAX package is the reference).
 
 Layout mirrors the JAX package: ``ops/`` (voxelize, sparse conv, FPS, ball
-query, radius graph, geodesic, NMS), ``models/`` (blocks, U-Net, aggregator,
-decoder, mask head, GeoFormer, GeoFormerFS), ``data/`` (eval batches),
-``evaluation/`` (ScanNet AP), ``utils/``, ``config.py``, ``engine.py`` and
-``weights.py``. Hand-written Hopper kernels live in ``csrc/`` and their
-wrappers in ``kernels/``; the eval drivers are ``cli/test.py`` and
-``cli/test_fs.py``, the row-gather probe ``tools/gather_probe.py``. Nothing
-here imports JAX or the JAX package.
+query, radius graph, geodesic, NMS, kNN, 3-NN interpolation, segment ops,
+clustering), ``models/`` (blocks, U-Net, aggregator, decoder, mask head,
+GeoFormer, GeoFormerFS), ``data/`` (datasets, augmentation), ``evaluation/``
+(ScanNet AP), ``utils/``, ``config.py``, ``engine.py``, ``weights.py`` and
+``native.py`` (the g++-built host ops). Hand-written Hopper kernels live in
+``csrc/`` and their wrappers in ``kernels/``; the drivers are in ``cli/``,
+the tools (row-gather probe, profiled step, upstream-checkpoint importer)
+in ``tools/``. Nothing here imports JAX or the JAX package.
 """
 
 import torch

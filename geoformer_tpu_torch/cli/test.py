@@ -16,8 +16,15 @@ geoformer_tpu_torch.cli.test ...``; ``--dist_backend gloo`` for two ranks
 on one card): each group of ``test_batch_size`` scenes (a multiple of N)
 is split over the ranks, each rank runs the forward and builds the host
 predictions of its own scenes, and rank 0 gathers them (in scene order),
-scores AP, logs and writes ``save_instance`` output. Every rank reads every
-scene, so the padding draws are those of a single process.
+scores AP, logs and writes the ``save_instance`` and ``save_semantic``
+output. Every rank reads every scene, so the padding draws are those of a
+single process.
+
+``save_semantic: True`` in the config writes each scene's
+semantic and instance PLY files and its boxes OBJ into the experiment's
+``result/`` (utils/visualize.py, as test.py does); ``--profile_dir DIR``
+writes a torch.profiler Chrome trace of the eval loop to
+``DIR/trace_rank<r>.json``.
 """
 
 from __future__ import annotations
@@ -33,11 +40,13 @@ from geoformer_tpu_torch.config import config_from_args
 from geoformer_tpu_torch.data.scannet import BENCHMARK_SEMANTIC_LABELS, FOLD, InstDataset
 from geoformer_tpu_torch.engine import Engine
 from geoformer_tpu_torch.evaluation.gt import make_gt_ids
-from geoformer_tpu_torch.evaluation.predictions import masks_to_raw
+from geoformer_tpu_torch.evaluation.predictions import labels_to_raw, masks_to_raw
 from geoformer_tpu_torch.evaluation.scannet_eval import ScanNetEval, print_results
 from geoformer_tpu_torch.parallel.dist import process_group
 from geoformer_tpu_torch.parallel.mesh import gather_objects, make_mesh, shard_batch
 from geoformer_tpu_torch.utils.logger import create_logger
+from geoformer_tpu_torch.utils.tracking import profile_trace
+from geoformer_tpu_torch.utils.visualize import export_scene_predictions
 from geoformer_tpu_torch.weights import load_jax_checkpoint
 
 CAPACITY_COUNTERS = ("n_overflow_points", "n_oor_points", "saturated",
@@ -110,6 +119,11 @@ def to_numpy(tree):
     return {k: v.cpu().numpy() for k, v in tree.items()}
 
 
+def label_digest(labels: np.ndarray) -> str:
+    """sha256 of per-point labels as int64."""
+    return hashlib.sha256(np.ascontiguousarray(labels, dtype=np.int64).tobytes()).hexdigest()
+
+
 def pred_digest(pred_info: dict) -> str:
     """sha256 of a scene's host predictions (label ids, confidences, masks),
     to tell exactly equal predictions apart from others cheaply."""
@@ -144,8 +158,6 @@ def _main(cfg) -> dict:
     device = default_device(cfg.device)
     mesh = make_mesh(device=device)
     primary = mesh.rank == 0
-    if cfg.save_semantic:
-        raise NotImplementedError("save_semantic needs utils/visualize.py, which is not ported yet")
     ckpt_path = cfg.pretrain or cfg.resume
     if ckpt_path is None:
         raise ValueError("a checkpoint is required: --pretrain or --resume")
@@ -154,7 +166,8 @@ def _main(cfg) -> dict:
     engine = Engine(cfg, device=device, state_dict=load_jax_checkpoint(ckpt_path), mesh=mesh)
     dataset = InstDataset(cfg, cfg.split)
     logger.info(f"eval scenes: {len(dataset)} on {device}, {mesh.world} rank(s)")
-    save_dir = os.path.join(exp_path, "result") if cfg.save_instance else None
+    save_dir = (os.path.join(exp_path, "result")
+                if (cfg.save_instance or cfg.save_semantic) else None)
     evaluator = ScanNetEval(cfg.cvfold)
 
     # Scenes are evaluated `test_batch_size` per forward over a [G, P, ...]
@@ -174,6 +187,7 @@ def _main(cfg) -> dict:
         keep_nms = out["nms"]["keep"].cpu().numpy()
         vs = to_numpy(out["voxel_stats"])
         fg_points = out["fg_valid"].sum(dim=1).tolist()
+        sem_all = out["semantic_scores"].float().cpu().numpy() if cfg.save_semantic else None
         dt = (time.time() - t0) / len(group)
         scenes = []
         for j in range(per_rank):
@@ -185,14 +199,19 @@ def _main(cfg) -> dict:
             pred_info = proposals_to_pred_info(cfg, proposals, keep_nms, mine, raw[:, :3],
                                                idx=j)
             n_points = int(batch["n_points"][0])  # device-resolution count
-            scenes.append((i, scene_name, pred_info, capacity_warning(scene_name, vs, j), {
-                "scene": scene_name, "n_points": n_points, "fg_points": fg_points[j],
-                "proposals": len(pred_info["conf"]), "seconds": dt,
-                "pred_digest": pred_digest(pred_info)}))
+            record = {"scene": scene_name, "n_points": n_points, "fg_points": fg_points[j],
+                      "proposals": len(pred_info["conf"]), "seconds": dt,
+                      "pred_digest": pred_digest(pred_info)}
+            sem = None
+            if sem_all is not None:  # per raw point, the argmax of the scores
+                sem = labels_to_raw(sem_all[j], mine, raw[:, :3], scene_index=j).argmax(-1)
+                record["semantic_digest"] = label_digest(sem)
+            scenes.append((i, scene_name, pred_info, sem, capacity_warning(scene_name, vs, j),
+                           record))
         gathered = gather_objects(scenes, mesh)
         if not primary:
             return
-        for i, scene_name, pred_info, warning, record in (s for r in gathered for s in r):
+        for i, scene_name, pred_info, sem, warning, record in (s for r in gathered for s in r):
             raw = np.load(dataset.file_names[i])
             # gt at full raw resolution, never truncated: the masks above are
             # projected to the same raw N
@@ -200,20 +219,24 @@ def _main(cfg) -> dict:
             evaluator.assign_instances_for_scan(scene_name, pred_info, gt_ids)
             if warning:
                 logger.warning(warning)
-            if save_dir is not None:
+            if cfg.save_instance:
                 save_benchmark_predictions(save_dir, scene_name, pred_info)
+            if sem is not None:
+                export_scene_predictions(save_dir, scene_name, raw[:, :3], sem,
+                                         pred_info["mask"].astype(bool))
             logger.info(f"[{i + 1}/{n_scenes}] {scene_name}: {record['n_points']} pts, "
                         f"{record['proposals']} proposals, {record['seconds']:.2f}s")
             records.append(dict(record, degraded=warning is not None))
 
-    group = []
-    for i, (scene_name, batch) in enumerate(dataset.test_batches()):
-        group.append((i, scene_name, batch))
-        if len(group) == group_size:
+    with profile_trace(cfg.profile_dir, name=f"trace_rank{mesh.rank}"):
+        group = []
+        for i, (scene_name, batch) in enumerate(dataset.test_batches()):
+            group.append((i, scene_name, batch))
+            if len(group) == group_size:
+                process_group(group)
+                group = []
+        if group:
             process_group(group)
-            group = []
-    if group:
-        process_group(group)
 
     if not primary:
         return {"avgs": None, "scenes": [], "n_degraded": 0}

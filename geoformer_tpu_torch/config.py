@@ -261,8 +261,9 @@ def config_from_args(argv=None) -> Config:
     omitted; without one this raises, before the config file is read) and
     ``--dist_backend`` (the process group's backend under torchrun:
     ``nccl`` on the card, ``gloo`` on the CPU by default; ``gloo`` lets two
-    ranks share one card). The JAX profiler hook ``--profile_dir`` has no
-    counterpart here."""
+    ranks share one card). ``--profile_dir`` captures a torch.profiler trace
+    of the eval loop there (utils/tracking.py profile_trace), where the JAX
+    package takes a jax.profiler trace."""
     p = argparse.ArgumentParser("geoformer_tpu_torch")
     p.add_argument("--config", type=str, default=None, help="path to config yaml")
     p.add_argument("--pretrain", type=str, default=None, help="path to pretrain checkpoint")
@@ -276,6 +277,8 @@ def config_from_args(argv=None) -> Config:
     p.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
                    help="torch.distributed backend under torchrun (default: nccl on the "
                         "card, gloo on the CPU)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="capture a torch.profiler trace of the eval loop here")
     args = p.parse_args(argv)
     default_device(args.device)  # raises without a card, before any file is read
     return load_config(
@@ -286,4 +289,5 @@ def config_from_args(argv=None) -> Config:
         exp_name=args.exp_name,
         device=args.device,
         dist_backend=args.dist_backend,
+        profile_dir=args.profile_dir,
     )

@@ -3,10 +3,9 @@ geoformer_tpu/data/augment.py).
 
 Semantics of the reference dataloader (datasets/scannetv2_inst.py:142-232):
 jitter/flip/rotate affine, elastic distortion, random crop to the point
-budget. The JAX package runs the elastic blur and the trilinear gather in a
-native C++ library when it can build one; the port carries that library's
-numpy/scipy fallbacks (``elastic_blur``, ``trilinear_gather``), the same
-semantics. scipy is imported where it is used.
+budget. The elastic blur and trilinear gather run in the native C++ library
+(geoformer_tpu_torch/native.py) wherever g++ builds it, numpy/scipy
+otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from geoformer_tpu_torch import native
 
 
 def augment_affine(xyz, rng, jitter=False, flip=False, rot=False):
@@ -33,45 +34,14 @@ def augment_affine(xyz, rng, jitter=False, flip=False, rot=False):
     return np.matmul(xyz, m)
 
 
-def elastic_blur(noise: np.ndarray) -> np.ndarray:
-    """Six 3-tap box blur passes over 3 noise grids [3,dx,dy,dz] (the
-    reference's blur0/blur1/blur2 x2, scannetv2_inst.py:146-152)."""
-    import scipy.ndimage
-
-    noise = np.ascontiguousarray(noise, dtype=np.float32)
-    blur0 = np.ones((3, 1, 1), np.float32) / 3
-    blur1 = np.ones((1, 3, 1), np.float32) / 3
-    blur2 = np.ones((1, 1, 3), np.float32) / 3
-    grids = [g for g in noise]
-    for blur in (blur0, blur1, blur2, blur0, blur1, blur2):
-        grids = [scipy.ndimage.convolve(g, blur, mode="constant", cval=0) for g in grids]
-    return np.stack(grids)
-
-
-def trilinear_gather(noise: np.ndarray, gran: float, pts: np.ndarray) -> np.ndarray:
-    """Sample 3 grids at pts with the reference's axis convention
-    (scannetv2_inst.py:153-158); out-of-bounds -> 0. -> [N,3]."""
-    import scipy.interpolate
-
-    noise = np.ascontiguousarray(noise, dtype=np.float32)
-    pts = np.ascontiguousarray(pts, dtype=np.float32)
-    d = noise.shape[1:]
-    ax = [np.linspace(-(b - 1) * gran, (b - 1) * gran, b) for b in d]
-    interp = [
-        scipy.interpolate.RegularGridInterpolator(ax, n, bounds_error=False, fill_value=0)
-        for n in noise
-    ]
-    return np.stack([i(pts) for i in interp], axis=1).astype(np.float32)
-
-
 def elastic(x, gran, mag, rng):
     """Elastic distortion over a blurred noise grid (scannetv2_inst.py:142-161)."""
     bb = np.abs(x).max(0).astype(np.int32) // gran + 3
     noise = np.stack(
         [rng.standard_normal(tuple(bb)).astype(np.float32) for _ in range(3)]
     )
-    noise = elastic_blur(noise)
-    g = trilinear_gather(noise, float(gran), x.astype(np.float32))
+    noise = native.elastic_blur(noise)
+    g = native.trilinear_gather(noise, float(gran), x.astype(np.float32))
     return x + g * mag
 
 

@@ -49,6 +49,19 @@ def region_crop_instance(xyz, instance_label, instance_id, scale_factor=2):
     return np.nonzero(keep)[0]
 
 
+def sphere_crop_instance(xyz, instance_label, instance_id, scale_factor=2):
+    """Sphere variant (scannetv2_fs_inst.py:277-291, get_sphere_inst):
+    ball around the instance centroid with radius = scaled max extent."""
+    half = scale_factor / 2
+    if half == -1:
+        return np.arange(xyz.shape[0])
+    inst = xyz[instance_label == instance_id]
+    centroid = inst.mean(0)
+    radius = half * np.linalg.norm(inst - centroid, axis=1).max()
+    keep = np.linalg.norm(xyz - centroid, axis=1) <= radius
+    return np.nonzero(keep)[0]
+
+
 class FSInstDataset:
     def __init__(self, cfg, split_set="train"):
         self.cfg = cfg

@@ -31,6 +31,12 @@ def make_gt_ids(raw_labels: np.ndarray, instance_labels: np.ndarray) -> np.ndarr
     return out
 
 
+def load_gt_ids(path: str) -> np.ndarray:
+    """Read a gt txt (one id per line), reference util/utils_3d.py:9-16
+    load_ids."""
+    return np.loadtxt(path, dtype=np.int64)
+
+
 def load_benchmark_predictions(listing_path: str) -> dict:
     """Read a ScanNet benchmark submission for one scene
     (util/utils_3d.py:18-73 get_instances input side): the per-scene txt

@@ -186,3 +186,27 @@ class InstSetCriterion:
         loss_dict["num_gt"] = inst_valid.float().sum() * replica_weight()
         loss_dict["loss"] = loss
         return loss, loss_dict
+
+
+def focal_loss_v1(logits, labels, alpha=0.25, gamma=2.0, valid=None):
+    """Standalone multi-label focal loss (reference criterion.py:87-113
+    FocalLossV1, unused by the training loop): mean over the valid entries."""
+    p = torch.sigmoid(logits)
+    ce = logits.clamp(min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    p_t = p * labels + (1 - p) * (1 - labels)
+    alpha_t = alpha * labels + (1 - alpha) * (1 - labels)
+    loss = alpha_t * ce * (1 - p_t) ** gamma
+    if valid is None:
+        return loss.mean()
+    v = valid.to(loss.dtype)
+    return (loss * v).sum() / v.sum().clamp(min=1.0)
+
+
+def compute_score_loss(scores, ious, valid, thresh_pos=0.5, thresh_neg=0.25):
+    """Proposal-score regression loss (reference criterion.py:65-84,
+    unused): BCE against soft labels from the IoU, 1 above thresh_pos, 0
+    below thresh_neg, linear in between."""
+    soft = ((ious - thresh_neg) / (thresh_pos - thresh_neg)).clamp(0.0, 1.0)
+    ce = scores.clamp(min=0) - scores * soft + torch.log1p(torch.exp(-scores.abs()))
+    v = valid.to(ce.dtype)
+    return (ce * v).sum() / v.sum().clamp(min=1.0)

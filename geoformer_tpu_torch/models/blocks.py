@@ -214,6 +214,40 @@ class MultiHeadSelfAttention(nn.Module):
         return self.out(out.reshape(out.shape[:-2] + (self.d_model,)))
 
 
+class MultiHeadAttention(nn.Module):
+    """Cross-attention with decoupled key/value widths (the JAX module of the
+    same name; the reference's model/attention.py, a torch-MHA fork with
+    kdim/vdim and an optional no-in-projection mode, unused by the shipped
+    model). q [B,Nq,dq], k [B,Nk,kdim], v [B,Nk,vdim], mask [B,Nk] -> [B,Nq,
+    d_model]. Its q/k/v are the JAX tree's DenseGeneral kernels [in, h, dh]
+    flattened to Linear weights [h*dh, in] (weights.from_jax_variables)."""
+
+    def __init__(self, d_model: int, nhead: int, kdim: int | None = None,
+                 vdim: int | None = None, dropout: float = 0.0, use_in_proj: bool = True,
+                 qdim: int | None = None):
+        super().__init__()
+        self.d_model, self.nhead = d_model, nhead
+        self.dropout = dropout
+        self.use_in_proj = use_in_proj
+        if use_in_proj:
+            self.q = nn.Linear(qdim or d_model, d_model)
+            self.k = nn.Linear(kdim or d_model, d_model)
+            self.v = nn.Linear(vdim or d_model, d_model)
+        self.out = nn.Linear(d_model, d_model)
+
+    def forward(self, q_in, k_in, v_in, mask):
+        d_head = self.d_model // self.nhead
+        if self.use_in_proj:
+            q_in, k_in, v_in = self.q(q_in), self.k(k_in), self.v(v_in)
+        heads = lambda t: t.reshape(t.shape[:-1] + (self.nhead, d_head))
+        q, k, v = heads(q_in), heads(k_in), heads(v_in)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d_head)
+        attn = masked_softmax(logits, mask[:, None, None, :], dim=-1)
+        attn = F.dropout(attn, self.dropout, self.training)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+        return self.out(out.reshape(out.shape[:-2] + (self.d_model,)))
+
+
 class SimpleNorm(nn.Module):
     """(x - mean) / (std + eps) with the unbiased std, learnable alpha/bias
     (the backbone bottleneck's hand-rolled Norm)."""

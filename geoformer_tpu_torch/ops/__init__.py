@@ -2,7 +2,8 @@
 
 The JAX ops run per scene under ``vmap``; here the batch dimension is
 written out, so most ops take ``[B, N, ...]`` tensors. ``gather_rows`` is the
-batched row gather that ``vmap(lambda a, i: a[i])`` was.
+batched row gather that ``vmap(lambda a, i: a[i])`` was. The package exports
+the JAX package's op names (see the end of this file).
 """
 
 from __future__ import annotations
@@ -74,3 +75,28 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     offsets = (torch.arange(b, device=idx.device) * n).view((b,) + (1,) * (idx.ndim - 1))
     pad = table.shape[0] - 1
     return _TakeRows.apply(table, torch.where(idx >= n, pad, idx + offsets))
+
+
+# the names geoformer_tpu/ops/__init__.py exports, after the helpers above,
+# which these modules import. Three of them are also this package's module
+# names (voxelize, ball_query, knn): there the package attribute stays the
+# module, which the port's code and tests import through it, and the function
+# is ops.voxelize.voxelize, ops.ball_query.ball_query and ops.knn.knn.
+from geoformer_tpu_torch.ops.voxelize import voxel_mean_pool, devoxelize  # noqa: E402
+from geoformer_tpu_torch.ops.fps import furthest_point_sample  # noqa: E402
+from geoformer_tpu_torch.ops.ball_query import query_and_group  # noqa: E402
+from geoformer_tpu_torch.ops.geodesic import geodesic_distance  # noqa: E402
+from geoformer_tpu_torch.ops.segment_ops import (  # noqa: E402
+    get_iou, roipool, sec_max, sec_mean, sec_min)
+from geoformer_tpu_torch.ops.cluster import (  # noqa: E402
+    ballquery_dense, bfs_cluster, connected_components)
+from geoformer_tpu_torch.ops.interpolate import (  # noqa: E402
+    gather_points, group_points, three_interpolate, three_interpolate_weights, three_nn)
+
+__all__ = [
+    "gather_rows", "pad_row", "padded_table", "take_rows",
+    "voxel_mean_pool", "devoxelize", "furthest_point_sample", "query_and_group",
+    "geodesic_distance", "sec_mean", "sec_min", "sec_max", "roipool", "get_iou",
+    "ballquery_dense", "bfs_cluster", "connected_components", "three_nn",
+    "three_interpolate", "three_interpolate_weights", "gather_points", "group_points",
+]

@@ -71,7 +71,7 @@ def _ball_query_hash_scene(centers, points, point_mask, radius, nsample, cell_ca
     return torch.where(hit, idx, first), hit
 
 
-def ball_query(centers, points, point_mask, radius, nsample, cell_cap):
+def ball_query(centers, points, point_mask, radius, nsample, cell_cap=0):
     """centers [B,K,3], points [B,P,3], point_mask [B,P] -> (idx
     [B,K,nsample] int64, hit [B,K,nsample] bool). cell_cap > 0: the
     voxel-hash path; 0: brute force."""
@@ -85,7 +85,7 @@ def ball_query(centers, points, point_mask, radius, nsample, cell_cap):
 
 
 def query_and_group(centers, points, feats, point_mask, radius, nsample,
-                    normalize_xyz=True, cell_cap=32):
+                    normalize_xyz=True, cell_cap=0):
     """Grouped [B,K,nsample,3] relative xyz (optionally / radius) and
     [B,K,nsample,C] features, plus (idx, hit)."""
     idx, hit = ball_query(centers, points, point_mask, radius, nsample, cell_cap)

@@ -19,8 +19,8 @@ packages either way. A training checkpoint adds ``opt_state`` (the optax
 state tree as ``flax.serialization.to_state_dict`` lays it out for the JAX
 package's optimizer, ``opt_state_to_jax``), ``step`` and ``epoch``; the JAX
 package's ``restore_train_state`` resumes from it and the port from the
-JAX one (``opt_state_from_jax``). Importing an upstream PyTorch checkpoint
-directly is not wired yet.
+JAX one (``opt_state_from_jax``). ``from_reference_state_dict`` imports an
+upstream PyTorch checkpoint's state_dict (tools/convert_reference_checkpoint.py).
 """
 
 from __future__ import annotations
@@ -68,6 +68,18 @@ def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def from_reference_state_dict(sd: dict, cfg, kernel_order: str = "xyz", mirror: bool = False,
+                              few_shot: bool = False) -> dict[str, torch.Tensor]:
+    """An upstream PyTorch GeoFormer state_dict (numpy or tensor leaves) ->
+    the port's state_dict: the reference checkpoint converter's ``convert``
+    followed by ``from_jax_variables``."""
+    from geoformer_tpu_torch.tools.convert_reference_checkpoint import convert
+
+    sd = {k: v.numpy() if hasattr(v, "numpy") else v for k, v in sd.items()}
+    params, stats, consts = convert(sd, cfg, kernel_order, mirror, few_shot)
+    return from_jax_variables({"params": params, "batch_stats": stats, "constants": consts})
+
+
 def _collection(name: str) -> str:
     return {"mean": "batch_stats", "var": "batch_stats", "gauss_B": "constants"}.get(
         name, "params")
@@ -76,10 +88,12 @@ def _collection(name: str) -> str:
 def _head_counts(model: torch.nn.Module) -> dict:
     """Attention projections (``prefix.q`` etc.) -> their head count, which
     un-flattens a Linear into a DenseGeneral kernel."""
-    from geoformer_tpu_torch.models.blocks import MultiHeadSelfAttention
+    from geoformer_tpu_torch.models.blocks import MultiHeadAttention, MultiHeadSelfAttention
 
-    return {f"{prefix}.{p}": mod.nhead for prefix, mod in model.named_modules()
-            if isinstance(mod, MultiHeadSelfAttention) for p in "qkv"}
+    return {f"{prefix}.{p}" if prefix else p: mod.nhead
+            for prefix, mod in model.named_modules()
+            if isinstance(mod, (MultiHeadSelfAttention, MultiHeadAttention))
+            and getattr(mod, "use_in_proj", True) for p in "qkv"}
 
 
 def _to_tree(tensors, heads: dict, split_collections: bool = True) -> dict:

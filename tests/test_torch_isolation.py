@@ -65,7 +65,11 @@ def test_port_and_chip_smoke_import_no_jax():
                 "geoformer_tpu_torch.parallel.dist", "geoformer_tpu_torch.parallel.train_state",
                 "geoformer_tpu_torch.utils.checkpoint", "geoformer_tpu_torch.utils.meters",
                 "geoformer_tpu_torch.utils.prefetch", "geoformer_tpu_torch.utils.scheduler",
-                "geoformer_tpu_torch.utils.tracking"}
+                "geoformer_tpu_torch.utils.tracking", "geoformer_tpu_torch.ops.knn",
+                "geoformer_tpu_torch.ops.interpolate", "geoformer_tpu_torch.ops.segment_ops",
+                "geoformer_tpu_torch.ops.cluster", "geoformer_tpu_torch.native",
+                "geoformer_tpu_torch.utils.visualize",
+                "geoformer_tpu_torch.tools.convert_reference_checkpoint"}
     assert expected <= set(res["modules"])
 
 

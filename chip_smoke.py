@@ -12,7 +12,8 @@ directory that lacks the port's package. It
    weights: fg indices equal, scores within 1e-3), then holds K1 and K2
    bit-equal to their plain versions on the corner cases of their designs
    (``kernel_edges``: kernels/edge_cases.py; K2's cluster size and K1's
-   exact-path rows printed per case) and times K2's chain of dependent picks
+   exact-path rows printed per case, the latter equal to what K1's design
+   gives, ``knn_exact_rows``) and times K2's chain of dependent picks
    on an all-invalid scene, where no distance is updated;
 4. drives the main path, Engine.eval_batch (the supervised eval forward +
    matrix NMS), over N >= 2 synthetic 250,000-point scenes at the
@@ -42,7 +43,10 @@ directory that lacks the port's package. It
    (d) the brute-force ball query at the aggregator's shapes against the
    hash path; (e) the backbone with ``tpu_subm_k`` 9 and 18 (compact slot
    tables) against the exact conv, with each level's largest live-offset
-   count; then K1 held against its plain version at k = 64;
+   count; then K1 held against its plain version at k = 64 on the exact
+   solver's table, on a uniform table of its shape live in every lane (K1's
+   second threshold) and on that table with each row's smallest values
+   packed in 7 lanes' slots (K1's exact path);
 7. runs the row-gather probe (tools/gather_probe.py: kernel K3 and its plain
    version, all ``OK``);
 8. writes a synthetic dataset (4 scenes of 250,000 points, 2 of them val)
@@ -125,7 +129,9 @@ directory that lacks the port's package. It
    distance sets, see MP_EVAL_RATIO);
 14. prints a ``kernels`` line with each kernel's launches on its paths (K2's
    by shape: every counted run logs the shape of each K2 call, and a row's
-   ``launches`` are those made at its shape), its times and its bound, the
+   ``launches`` are those made at its shape; K2's row at two scenes,
+   [2, 50000] x 2,048, counts the data- and model-parallel ranks'
+   launches), its times and its bound, the
    card's line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -487,9 +493,10 @@ def small_reference(torch, cfg_mod, Engine, synthetic_batch) -> dict:
 
 def kernel_edges(torch) -> dict:
     """K1 and K2 bit-equal to their plain versions on the corner cases of
-    their designs, and the time of K2's chain of picks with no distance to
-    update (an all-invalid scene of the main path's size)."""
-    from geoformer_tpu_torch.kernels.edge_cases import fps_cases, knn_cases
+    their designs, K1's exact-path rows equal to what its design gives
+    (``knn_exact_rows``), and the time of K2's chain of picks with no
+    distance to update (an all-invalid scene of the main path's size)."""
+    from geoformer_tpu_torch.kernels.edge_cases import fps_cases, knn_cases, knn_exact_rows
     from geoformer_tpu_torch.kernels.fps import cluster_size, fps, fps_plain
     from geoformer_tpu_torch.kernels.knn_select import (
         select_min_k_cand,
@@ -497,15 +504,17 @@ def kernel_edges(torch) -> dict:
     )
 
     cases, bad = [], []
-    for name, d2, cand, k in knn_cases():
-        d2, cand = torch.from_numpy(d2).cuda(), torch.from_numpy(cand).cuda()
+    for name, d2_np, cand, k in knn_cases():
+        d2, cand = torch.from_numpy(d2_np).cuda(), torch.from_numpy(cand).cuda()
         rows = torch.zeros(1, dtype=torch.int32, device="cuda")
         got = select_min_k_cand(d2, cand, k, exact_rows=rows)
         want = select_min_k_cand_plain(d2, cand, k)
         ok = all(torch.equal(bits(torch, g), bits(torch, w)) for g, w in zip(got, want))
+        model = knn_exact_rows(d2_np, k)
         cases.append({"kernel": "knn_select", "case": name, "shape": [*d2.shape, k],
-                      "exact_rows": int(rows), "equal": ok})
+                      "exact_rows": int(rows), "exact_rows_design": model, "equal": ok})
         bad += [] if ok else [f"knn_select {name}"]
+        bad += [] if int(rows) == model else [f"knn_select {name} exact rows"]
     for name, pts, msk, ns in fps_cases():
         pts, msk = torch.from_numpy(pts).cuda(), torch.from_numpy(msk).cuda()
         ok = torch.equal(fps(pts, msk, ns), fps_plain(pts, msk, ns))
@@ -893,9 +902,30 @@ def offpath(torch, cfg_mod, Engine, synthetic_batch, counters) -> dict:
     row["launches_by_path"] = {f"offpath_{name}": r["res"]["launches"]["knn_select"]
                                for name, r in runs.items()}
     del d2, cand, runs["exact"]["knn_log"].first[shape]
+    # the same shape on two tables that no path makes at k = 64: uniform d2
+    # live in every lane (the k-th pair value leaves c > 128: the second
+    # chance's cost), then with the row's smallest values packed in 7 lanes'
+    # slots (c > 128 at every pair value: the exact path's cost)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d2 = torch.rand(n, w, generator=gen, device="cuda")
+    cand = torch.randint(0, n, (n, w), generator=gen, device="cuda", dtype=torch.int32)
+    tables = []
+    for table in ("all_live_uniform", "packed_in_7_lanes"):
+        if table == "packed_in_7_lanes":
+            d2 += (torch.arange(w, device="cuda") % 32 >= 7).float()
+        tables.append(kernel_row(
+            torch, name="knn_select", source="geoformer_tpu_torch/csrc/knn_select.cu",
+            replaces="geoformer_tpu/ops/knn_select_pallas.py:34", launches=0,
+            kernel=lambda: select_min_k_cand(d2, cand, k),
+            plain=lambda: select_min_k_cand_plain(d2, cand, k),
+            library=lambda: torch.topk(d2, k, dim=1, largest=False),
+            bytes_=n * w * 4 + n * k * 4 + n * k * 8, ops=n * w * k, shape=[n, w, k],
+            reps=20, plain_reps=3, table=table,
+            exact_share=exact_share(torch, select_min_k_cand, d2, cand, k)))
+    del d2, cand
     emit({"phase": "offpath_done", "seconds": time.time() - t0})
     return {"by_path": {f"offpath_{name}": r["res"]["launches"] for name, r in runs.items()},
-            "k1": row}
+            "k1": row, "k1_tables": tables}
 
 
 # ---------------- the library ops and host tools ----------------
@@ -1732,7 +1762,12 @@ def train_paths(torch, cfg_mod, Engine, here, batch_size, counters, smoke) -> di
     del d2, cand, sup["knn"]
     k2 = [fps_row(torch, fps, fps_plain, inp, res["launches"]["fps_by_shape"].get(
         json.dumps(list(key)), 0)) for key, inp in sup["fps"].items()]
-    del sup
+    # two of these scenes: K2's shape on the data- and model-parallel ranks
+    # (two scenes a rank or a data index), timed once their launches are in
+    (pts, msk, ns), = [inp for key, inp in sup["fps"].items()
+                       if key[1] == cfgs["train"].n_downsampling]
+    two_scenes = (pts[:2].clone(), msk[:2].clone(), ns)
+    del sup, pts, msk
     fs = capture_train_kernels(torch, Engine, cfgs["train_fs"], res_fs["checkpoint"], True)
     k2 += [fps_row(torch, fps, fps_plain, inp, res_fs["launches"]["fps_by_shape"].get(
         json.dumps(list(key)), 0)) for key, inp in fs["fps"].items()]
@@ -1742,7 +1777,7 @@ def train_paths(torch, cfg_mod, Engine, here, batch_size, counters, smoke) -> di
         row["path"] = "train" if row["shape"][1] == cfgs["train"].n_downsampling else "train_fs"
         if row["shape"][0] < 2 or row["launches"] <= 0:
             fail(f"fps at a training shape {row['shape']}: batch < 2 or no launch")
-    return {"by_path": by_path, "k1": k1, "k2": k2, "data": data}
+    return {"by_path": by_path, "k1": k1, "k2": k2, "data": data, "fps_two_scenes": two_scenes}
 
 
 # ---------------- data parallelism ----------------
@@ -2065,7 +2100,8 @@ def ddp_train(torch, cfg_mod, Engine, here, counters, smoke, train) -> dict:
            "ranks": [{k: g[k] for k in ("rank", "process_group", "ms_per_step", "max_memory_gb",
                                         "capacity_counters", "num_gt", "param_digest",
                                         "remat_blocks", "bf16_conv_operands", "seconds")}
-                     | {"launches": {k: g["launches"][k] for k in ("knn_select", "fps")},
+                     | {"launches": {k: g["launches"][k]
+                                     for k in ("knn_select", "fps", "fps_by_shape")},
                         "losses": g["losses"]} for g in got],
            "seconds": time.time() - t0}
     emit(res)
@@ -2168,7 +2204,8 @@ def ddp_eval_and_nccl(torch, cfg_mod, here, smoke, train, ddp) -> dict:
            "scenes": pick(got[0]["scenes"]), "equal_to_one_process_b1": equal, **beside,
            "one_process_b2_scenes": pick(single[2]["scenes"]),
            "ranks": [{k: g[k] for k in ("rank", "process_group", "seconds", "max_memory_gb")}
-                     | {"launches": {k: g["launches"][k] for k in ("knn_select", "fps")}}
+                     | {"launches": {k: g["launches"][k]
+                                     for k in ("knn_select", "fps", "fps_by_shape")}}
                      for g in got], "seconds": time.time() - t0}
     emit(res)
     nres = {"phase": "ddp_nccl", "process_group": n["process_group"], "steps": n["steps"],
@@ -2281,14 +2318,18 @@ def held_against_plain(torch, run) -> dict:
     return kernels_match_plain(torch, *logs)
 
 
-def k12_launches(reset: bool = False) -> dict:
-    """K1's and K2's launch counters (set to 0 first with ``reset``)."""
+def k12_launches(reset: bool = False) -> dict | None:
+    """K1's and K2's launch counters set to 0 and K2's calls logged from
+    then on (``reset``), or read with K2's by shape (the log ends)."""
     from geoformer_tpu_torch.kernels.fps import fps
     from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand
 
     if reset:
         select_min_k_cand.launches = fps.launches = 0
-    return {"knn_select": select_min_k_cand.launches, "fps": fps.launches}
+        fps.capture = CallLog()
+        return None
+    log, fps.capture = fps.capture, None
+    return read_launches({"knn_select": select_min_k_cand, "fps": fps}, log)
 
 
 def activation_bytes(traffic: dict) -> int:
@@ -2980,8 +3021,16 @@ def main(argv=None) -> int:
     for phase, got in mp.items():
         for r, launches in enumerate(got["rank_launches"]):
             by_path[f"{phase}_rank{r}"] = launches
-    k1_row["other_shapes"] = [trained["k1"], off["k1"]]
-    fs_rows += trained["k2"]
+    k1_row["other_shapes"] = [trained["k1"], off["k1"], *off["k1_tables"]]
+    # K2 at two scenes, [2, 50000] x 2,048, with the launches every path
+    # made at that shape (the ddp_train, mp_train and mp_eval ranks)
+    pts, msk, ns = trained["fps_two_scenes"]
+    two = json.dumps([*pts.shape[:2], ns])
+    k2_two = fps_row(torch, fps, fps_plain, trained["fps_two_scenes"],
+                     sum(c.get("fps_by_shape", {}).get(two, 0) for c in by_path.values()))
+    if k2_two["launches"] <= 0:
+        fail(f"fps: no path launched K2 at {two}")
+    fs_rows += trained["k2"] + [k2_two]
     k2_row["other_shapes"] = fs_rows
     # the floor of K2's design beside its operations bound: the chain of
     # dependent picks, timed with no distance to update

@@ -2,8 +2,10 @@
 
 Each case names what it exercises. The card tests
 (``tests/test_torch_{fps,knn_select}.py``) and the ``kernel_edges`` phase of
-``chip_smoke.py`` hold each kernel bit-equal to its plain version on them;
-the CPU tests hold the plain versions against JAX on the ones JAX can take.
+``chip_smoke.py`` hold each kernel bit-equal to its plain version on them,
+and K1's exact-path rows equal to what ``knn_exact_rows``, a model of its
+design, gives; the CPU tests hold the plain versions against JAX on the ones
+JAX can take.
 """
 
 from __future__ import annotations
@@ -102,10 +104,113 @@ def knn_rows(w: int, seed: int = 0) -> np.ndarray:
     return np.stack(rows).astype(np.float32)
 
 
+def knn_wide_rows(w: int, seed: int = 0) -> tuple[list[str], np.ndarray]:
+    """(labels, d2 [n, w] f32): rows for K1's 32 < k <= 64 design, which
+    sorts the elements at or below a threshold taken from the lanes' pair
+    values (each lane's two smallest) when there are at most 128 of them
+    (``knn_sort_counts``). Live lanes hold d2 < 1e30, dead lanes the 1e30
+    sentinel."""
+    rng = np.random.default_rng(seed + 7 * w)
+    labels, rows = [], []
+
+    def dead():
+        return np.full(w, _BIG, np.float32)
+
+    def add(label, r):
+        labels.append(label)
+        rows.append(r)
+
+    def live_at(lanes):
+        r = dead()
+        r[lanes] = rng.uniform(0, 1, len(lanes))
+        return r
+
+    # the exact geodesic solver's rows: the radius graph's 27 cells of
+    # w // 27 slots, each with its points first, some of them in radius
+    # (at most 44 lanes live on a real scene's table), 1e30 elsewhere
+    cap = w // 27
+    for n_live in (1, 5, 20, 33, 44):
+        r = dead()
+        while (r < _BIG).sum() < n_live:
+            cell = rng.integers(27)
+            r[cell * cap + rng.integers(min(cap, 8))] = rng.uniform(0, 1)
+        add(f"solver_{n_live}_live", r)
+    for n_live in (44, 63, 64, 65):                  # spread over the row
+        add(f"random_{n_live}_live", live_at(rng.choice(w, n_live, replace=False)))
+    # one live lane in slot 0 of each lane: the pairs' seconds are the dead
+    # slot 1 (j = 32 + lane), tau among them
+    add("pairs_dead_slot1", live_at(np.arange(32)))
+    # half the lanes' one live value in a high slot: their pairs hold a
+    # dead slot 0
+    add("pairs_dead_slot0", live_at(np.r_[np.arange(16), 32 * (w // 64) + np.arange(16, 32)]))
+    # ties straddling tau: a few distinct values over 48 and over 100 lanes
+    for n_live in (48, 100):
+        r = dead()
+        r[rng.choice(w, n_live, replace=False)] = rng.integers(1, 4, n_live) / 4
+        add(f"ties_{n_live}_live", r)
+    # 64 < c <= 128: 90 live lanes, most in the first two slots
+    r = live_at(np.r_[np.arange(64), rng.choice(np.arange(64, w), 26, replace=False)])
+    add("c_64_to_128", r)
+    # c > 128 at the k-th pair value, <= 128 at a smaller one of the upper
+    # 32 (the second chance): live everywhere
+    add("all_live", rng.uniform(0, 1, w).astype(np.float32))
+    # c > 128 at every pair value of the upper 32 (the exact path): the
+    # smallest values packed in 7 lanes' slots, more than 128 of them
+    r = rng.uniform(1, 2, w).astype(np.float32)
+    r[np.arange(w) % 32 < 7] = rng.uniform(0, 1, int((np.arange(w) % 32 < 7).sum()))
+    add("packed_in_7_lanes", r)
+    # NaN, +0.0 and -0.0 among few live lanes, and a row mostly NaN
+    r = live_at(rng.choice(w, 30, replace=False))
+    r[rng.choice(w, 40, replace=False)] = np.nan
+    r[rng.choice(w, 10, replace=False)] = 0.0
+    r[rng.choice(w, 10, replace=False)] = -0.0
+    add("nan_and_zeros", r)
+    r = np.full(w, np.nan, np.float32)
+    r[rng.choice(w, 20, replace=False)] = rng.choice([0.0, -0.0, 0.5], 20)
+    add("mostly_nan", r)
+    return labels, np.stack(rows).astype(np.float32)
+
+
+def knn_sort_counts(d2: np.ndarray, k: int, second_chance: bool = True) -> np.ndarray:
+    """A model of K1's design: per row, the number c of elements at or
+    below its threshold, in the kernel's composite order (key, j) over its
+    S slots a lane. For k <= 32 the threshold is the k-th smallest lane
+    minimum; for 32 < k <= 64 the k-th smallest of the lanes' pair values,
+    or, where that leaves c > 128, the smallest of the pair values at ranks
+    32 to k - 1 with c >= k (``second_chance``; without it, the count at
+    the k-th pair value)."""
+    n, w = d2.shape
+    s = next(s for s in (1, 2, 4, 8, 16, 21, 32) if 32 * s >= w)
+    u = d2.view(np.uint32).astype(np.uint64)
+    key = np.where(u >> 31 == 1, ~u & 0xFFFFFFFF, u | 0x80000000)
+    key[u == 0x80000000] = 0x80000000                # -0.0 as +0.0
+    key[np.isnan(d2)] = 0xFFFFFFFF
+    comp = np.full((n, 32 * s), 0xFFFFFFFF, np.uint64)  # slots past the row's end
+    comp[:, :w] = key
+    comp = (comp << np.uint64(32)) | np.arange(32 * s, dtype=np.uint64)
+    per_lane = np.sort(comp.reshape(n, s, 32), axis=1)  # [row, rank in lane, lane]
+    if k <= 32:
+        return (comp <= np.sort(per_lane[:, 0], axis=1)[:, k - 1, None]).sum(1)
+    pairs = np.sort(per_lane[:, :2].reshape(n, -1), axis=1)
+    counts = np.stack([(comp <= pairs[:, r, None]).sum(1) for r in range(32, k)], 1)
+    second = np.where(counts >= k, counts, np.iinfo(counts.dtype).max).min(1)
+    return np.where(second_chance & (counts[:, -1] > 128), second, counts[:, -1])
+
+
+def knn_exact_rows(d2: np.ndarray, k: int) -> int:
+    """Rows that take K1's exact path by its design: c > 64 (k <= 32) or
+    c > 128 (32 < k <= 64), and every row when k > 64."""
+    if k > 64:
+        return d2.shape[0]
+    return int((knn_sort_counts(d2, k) > (64 if k <= 32 else 128)).sum())
+
+
 def knn_cases(seed: int = 0) -> list[tuple[str, np.ndarray, np.ndarray, int]]:
     """(name, d2 [n,W] f32, cand [n,W] i32, k) for K1: W = 16, 70, 648 and
-    1024, k from 1 to W. W = 648 with k = 64 is the exact geodesic solver's
-    graph (every row past the warp path's k <= 32, on the exact path)."""
+    1024, k from 1 to W, on the rows of ``knn_rows``; and W = 648 with
+    k = 33, 48, 63, 64 and W = 1024 with k = 64 on the rows of
+    ``knn_wide_rows``. W = 648 with k = 64 is the exact geodesic solver's
+    graph."""
     cases = []
     for w, ks in ((16, (1, 16)), (70, (16, 32, 70)), (648, (1, 8, 16, 32, 64)),
                   (1024, (16, 1024))):
@@ -113,4 +218,9 @@ def knn_cases(seed: int = 0) -> list[tuple[str, np.ndarray, np.ndarray, int]]:
         cand = np.random.default_rng(seed + 1).integers(0, 1 << 20, d2.shape).astype(np.int32)
         for k in ks:
             cases.append((f"w{w}_k{k}", d2, cand, k))
+    for w, ks in ((648, (33, 48, 63, 64)), (1024, (64,))):
+        d2 = knn_wide_rows(w, seed)[1]
+        cand = np.random.default_rng(seed + 2).integers(0, 1 << 20, d2.shape).astype(np.int32)
+        for k in ks:
+            cases.append((f"w{w}_wide_k{k}", d2, cand, k))
     return cases

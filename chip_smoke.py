@@ -12,8 +12,9 @@ directory that lacks the port's package. It
    weights: fg indices equal, scores within 1e-3), then holds K1 and K2
    bit-equal to their plain versions on the corner cases of their designs
    (``kernel_edges``: kernels/edge_cases.py; K2's cluster size and K1's
-   exact-path rows printed per case, the latter equal to what K1's design
-   gives, ``knn_exact_rows``) and times K2's chain of dependent picks
+   exact-path rows printed per case, none among the rows K1's design must
+   sort and all among those it must send to its exact path,
+   ``knn_path_rows``) and times K2's chain of dependent picks
    on an all-invalid scene, where no distance is updated;
 4. drives the main path, Engine.eval_batch (the supervised eval forward +
    matrix NMS), over N >= 2 synthetic 250,000-point scenes at the
@@ -44,9 +45,10 @@ directory that lacks the port's package. It
    hash path; (e) the backbone with ``tpu_subm_k`` 9 and 18 (compact slot
    tables) against the exact conv, with each level's largest live-offset
    count; then K1 held against its plain version at k = 64 on the exact
-   solver's table, on a uniform table of its shape live in every lane (K1's
-   second threshold) and on that table with each row's smallest values
-   packed in 7 lanes' slots (K1's exact path);
+   solver's table, and, on ``kernel`` lines of their own (``table``, no
+   launch count: no path makes them), on a uniform table of its shape live
+   in every lane and on that table with each row's smallest values packed
+   in 7 lanes' slots (K1's exact path);
 7. runs the row-gather probe (tools/gather_probe.py: kernel K3 and its plain
    version, all ``OK``);
 8. writes a synthetic dataset (4 scenes of 250,000 points, 2 of them val)
@@ -314,7 +316,7 @@ def kernel_row(torch, *, name, source, replaces, launches, kernel, plain, librar
     """Hold ``kernel()`` against ``plain()`` (exact equality of every output)
     and time both, and ``library()`` where there is one, with ``timer``.
     ``bytes_`` and ``ops`` are what the function must move and do on these
-    inputs."""
+    inputs. ``launches`` None: a table no path makes, no launch count."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -331,6 +333,8 @@ def kernel_row(torch, *, name, source, replaces, launches, kernel, plain, librar
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": timer(torch, library, reps) if library is not None else None,
         "shape": shape, **extra}
+    if launches is None:
+        del row["launches"]
     emit({"phase": "kernel", **row})
     return row
 
@@ -493,10 +497,11 @@ def small_reference(torch, cfg_mod, Engine, synthetic_batch) -> dict:
 
 def kernel_edges(torch) -> dict:
     """K1 and K2 bit-equal to their plain versions on the corner cases of
-    their designs, K1's exact-path rows equal to what its design gives
-    (``knn_exact_rows``), and the time of K2's chain of picks with no
-    distance to update (an all-invalid scene of the main path's size)."""
-    from geoformer_tpu_torch.kernels.edge_cases import fps_cases, knn_cases, knn_exact_rows
+    their designs, K1's exact path taken by no row that its design must
+    sort and by every row that it must send there (``knn_path_rows``), and
+    the time of K2's chain of picks with no distance to update (an
+    all-invalid scene of the main path's size)."""
+    from geoformer_tpu_torch.kernels.edge_cases import fps_cases, knn_cases, knn_path_rows
     from geoformer_tpu_torch.kernels.fps import cluster_size, fps, fps_plain
     from geoformer_tpu_torch.kernels.knn_select import (
         select_min_k_cand,
@@ -510,11 +515,15 @@ def kernel_edges(torch) -> dict:
         got = select_min_k_cand(d2, cand, k, exact_rows=rows)
         want = select_min_k_cand_plain(d2, cand, k)
         ok = all(torch.equal(bits(torch, g), bits(torch, w)) for g, w in zip(got, want))
-        model = knn_exact_rows(d2_np, k)
         cases.append({"kernel": "knn_select", "case": name, "shape": [*d2.shape, k],
-                      "exact_rows": int(rows), "exact_rows_design": model, "equal": ok})
+                      "exact_rows": int(rows), "equal": ok})
         bad += [] if ok else [f"knn_select {name}"]
-        bad += [] if int(rows) == model else [f"knn_select {name} exact rows"]
+        sort, to_exact = knn_path_rows(name, d2_np, k)
+        for mask, want in ((sort, 0), (to_exact, int(to_exact.sum()))):
+            rows.zero_()
+            pick = torch.from_numpy(mask).cuda()
+            select_min_k_cand(d2[pick], cand[pick], k, exact_rows=rows)
+            bad += [] if int(rows) == want else [f"knn_select {name} exact rows"]
     for name, pts, msk, ns in fps_cases():
         pts, msk = torch.from_numpy(pts).cuda(), torch.from_numpy(msk).cuda()
         ok = torch.equal(fps(pts, msk, ns), fps_plain(pts, msk, ns))
@@ -902,30 +911,30 @@ def offpath(torch, cfg_mod, Engine, synthetic_batch, counters) -> dict:
     row["launches_by_path"] = {f"offpath_{name}": r["res"]["launches"]["knn_select"]
                                for name, r in runs.items()}
     del d2, cand, runs["exact"]["knn_log"].first[shape]
-    # the same shape on two tables that no path makes at k = 64: uniform d2
-    # live in every lane (the k-th pair value leaves c > 128: the second
-    # chance's cost), then with the row's smallest values packed in 7 lanes'
-    # slots (c > 128 at every pair value: the exact path's cost)
+    # the same shape on two tables that no path makes at k = 64, on kernel
+    # lines of their own with no launch count: uniform d2 live in every
+    # lane (c near 128 at the k-th pair value), then with the row's
+    # smallest values packed in 7 lanes' slots (c > 128: the exact path's
+    # cost)
     gen = torch.Generator(device="cuda").manual_seed(0)
     d2 = torch.rand(n, w, generator=gen, device="cuda")
     cand = torch.randint(0, n, (n, w), generator=gen, device="cuda", dtype=torch.int32)
-    tables = []
     for table in ("all_live_uniform", "packed_in_7_lanes"):
         if table == "packed_in_7_lanes":
             d2 += (torch.arange(w, device="cuda") % 32 >= 7).float()
-        tables.append(kernel_row(
+        kernel_row(
             torch, name="knn_select", source="geoformer_tpu_torch/csrc/knn_select.cu",
-            replaces="geoformer_tpu/ops/knn_select_pallas.py:34", launches=0,
+            replaces="geoformer_tpu/ops/knn_select_pallas.py:34", launches=None,
             kernel=lambda: select_min_k_cand(d2, cand, k),
             plain=lambda: select_min_k_cand_plain(d2, cand, k),
             library=lambda: torch.topk(d2, k, dim=1, largest=False),
             bytes_=n * w * 4 + n * k * 4 + n * k * 8, ops=n * w * k, shape=[n, w, k],
             reps=20, plain_reps=3, table=table,
-            exact_share=exact_share(torch, select_min_k_cand, d2, cand, k)))
+            exact_share=exact_share(torch, select_min_k_cand, d2, cand, k))
     del d2, cand
     emit({"phase": "offpath_done", "seconds": time.time() - t0})
     return {"by_path": {f"offpath_{name}": r["res"]["launches"] for name, r in runs.items()},
-            "k1": row, "k1_tables": tables}
+            "k1": row}
 
 
 # ---------------- the library ops and host tools ----------------
@@ -3021,7 +3030,7 @@ def main(argv=None) -> int:
     for phase, got in mp.items():
         for r, launches in enumerate(got["rank_launches"]):
             by_path[f"{phase}_rank{r}"] = launches
-    k1_row["other_shapes"] = [trained["k1"], off["k1"], *off["k1_tables"]]
+    k1_row["other_shapes"] = [trained["k1"], off["k1"]]
     # K2 at two scenes, [2, 50000] x 2,048, with the launches every path
     # made at that shape (the ddp_train, mp_train and mp_eval ranks)
     pts, msk, ns = trained["fps_two_scenes"]

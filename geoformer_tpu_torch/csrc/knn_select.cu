@@ -32,21 +32,16 @@
 //        their seconds descending across the warp, the larger of the two
 //        in each lane, then a bitonic merge: the upper 32 of the 64 in
 //        order); the k smallest pair values are k distinct elements;
-//   2. the c elements <= tau are counted (__reduce_add_sync). For
-//      32 < k <= 64 with c > 128 (a row live in many lanes: the k-th pair
-//      value lies well above the k-th element) there is a second chance:
-//      tau becomes the smallest of the pair values at ranks 32 to k - 1
-//      with c >= k, found by binary search (c grows with the rank; one
-//      count a step; the 32 values wait in the warp's buffer). If then
-//      c <= 64 (k <= 32) or c <= 128 (32 < k <= 64), the c elements are
-//      compacted (warp prefix sum, one 64- or 128-slot buffer per warp in
-//      shared memory), loaded one to four a lane and sorted across the warp
-//      (32-wide bitonic sorts and merges; of 128, only the lower 64 are
-//      merged), and the lanes write ranks lane and lane + 32 below k;
-//   3. otherwise (many elements below every threshold tried: the row's
-//      smallest values packed in a few lanes), or if k > 64, the row takes
-//      the kernel's exact path: k rounds of a lane-local min over the
-//      composites above the last pick and two warp reductions
+//   2. the c elements <= tau are counted (__reduce_add_sync); if c <= 64
+//      (k <= 32) or c <= 128 (32 < k <= 64), they are compacted (warp
+//      prefix sum, one 64- or 128-slot buffer per warp in shared memory),
+//      loaded one to four a lane and sorted across the warp (32-wide
+//      bitonic sorts and merges; of 128, only the lower 64 are merged), and
+//      the lanes write ranks lane and lane + 32 below k;
+//   3. otherwise (many elements below the threshold: a row live in many
+//      lanes, or its smallest values packed in a few lanes), or if k > 64,
+//      the row takes the kernel's exact path: k rounds of a lane-local min
+//      over the composites above the last pick and two warp reductions
 //      (__reduce_min_sync on the key, then on the lane among the lanes
 //      holding that key).
 // The exact geodesic solver's rows (k = 64, at most a few tens of lanes in
@@ -60,12 +55,13 @@
 // practice is latency and shuffle throughput, not bytes: a warp's row is a
 // chain of dependent shuffles, so the SM needs many warps in flight. The
 // kernel is instantiated for S = 1, 2, 4, 8, 16, 21 and 32 slots a lane
-// (the fewest that hold the row: 21 at W = 648), which keeps the row's
-// keys in registers at no more than 80 a thread, three or more blocks of eight
-// warps an SM (the k > 32 kernel at 32 slots: 128 registers, two blocks),
-// and once for k <= 32 and once for k > 32 (Wide), so that the k <= 32
-// kernel keeps its registers and its 4 KB of shared memory a block (8 KB
-// with Wide).
+// (the fewest that hold the row: 21 at W = 648), which keeps the row's keys
+// in registers at no more than 80 a thread, three or more blocks of eight
+// warps an SM (the 32 < k <= 64 kernel at 32 slots: 102 registers, two
+// blocks), and once for k <= 32 or k > 64 and once for 32 < k <= 64 (Wide),
+// so that the other kernel keeps its registers and its 4 KB of shared
+// memory a block (8 KB with Wide). A Wide row that takes the exact path
+// runs it under Wide's registers and occupancy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,8 +72,8 @@ constexpr int kWarp = 32;
 constexpr int kMaxPerThread = 32;  // W <= 1024
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMinBlocks = 3;  // blocks an SM should hold: caps registers at 80
-// the k > 32 kernel at 32 slots a lane (W > 672) spills under 80 registers:
-// two blocks an SM, 128 registers
+// the 32 < k <= 64 kernel at 32 slots a lane (W > 672) takes 102
+// registers: two blocks an SM
 constexpr int kMinBlocksWide32 = 2;
 constexpr uint64_t kMax64 = ~0ull;
 constexpr unsigned kFull = 0xffffffffu;
@@ -149,8 +145,7 @@ __device__ __forceinline__ void bitonic_sort64(uint64_t& x0, uint64_t& x1, int l
 }
 
 // S: slots a lane holds (W <= 32 * S), a compile-time size so that the
-// row's keys stay in registers. Wide: the kernel for k > 32 (the sort path
-// for k <= 64, the exact path above).
+// row's keys stay in registers. Wide: the kernel for 32 < k <= 64.
 template <int S, bool Wide>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp,
                                   Wide && S == kMaxPerThread ? kMinBlocksWide32 : kMinBlocks)
@@ -218,13 +213,15 @@ knn_select_kernel(const float* __restrict__ d2, const int32_t* __restrict__ cand
       const uint64_t m0 = ((uint64_t)k0 << 32) | (uint32_t)(s0 * kWarp + lane);
       const uint64_t m1 = ((uint64_t)k1 << 32) | (uint32_t)(s1 * kWarp + lane);
       // the 64 pair values: firsts ascending, seconds descending (together
-      // bitonic); the larger of each lane's two are the upper 32, bitonic.
-      // The upper 32 in order wait in the buffer, out of registers, for
-      // the second chance below
+      // bitonic); the larger of each lane's two are the upper 32, bitonic,
+      // put in order: lane r holds rank 32 + r. tau is read through the
+      // warp's buffer (76 registers at S = 21; through shuffles, 80 and
+      // 4 % slower)
       buf[wib][lane] = bitonic_merge32(
           max64(bitonic_sort32(m0, lane, true), bitonic_sort32(m1, lane, false)), lane, true);
       __syncwarp();
       tau = buf[wib][k - 1 - kWarp];
+      __syncwarp();  // every lane has read tau before the buffer is reused
     } else {
       // the k-th smallest lane minimum (the first slot wins a tie, which is
       // the lowest j)
@@ -240,35 +237,11 @@ knn_select_kernel(const float* __restrict__ d2, const int32_t* __restrict__ cand
       tau = shfl64(bitonic_sort32(m, lane, true), k - 1);
     }
     // 2: count and, when few, compact and sort
-    uint32_t tk, tj;
-    int cnt, c;
-    auto count = [&](uint64_t t) {
-      tk = (uint32_t)(t >> 32);
-      tj = (uint32_t)t;
-      cnt = 0;
+    const uint32_t tk = (uint32_t)(tau >> 32), tj = (uint32_t)tau;
+    int cnt = 0;
 #pragma unroll
-      for (int s = 0; s < S; ++s) cnt += at_most(s, tk, tj);
-      c = (int)__reduce_add_sync(kFull, (unsigned)cnt);
-    };
-    count(tau);
-    if constexpr (Wide) {
-      if (c > kSortCap) {
-        // a second chance: the smallest of the pair values at ranks 32 to
-        // k - 1 with at least k elements at or below it (c grows with the
-        // rank; binary search, a count a step)
-        int lo = 0, hi = k - 1 - kWarp;
-        while (lo < hi) {
-          const int mid = (lo + hi) / 2;
-          count(buf[wib][mid]);
-          if (c >= k)
-            hi = mid;
-          else
-            lo = mid + 1;
-        }
-        count(buf[wib][hi]);
-      }
-      __syncwarp();  // every lane has read the pair values
-    }
+    for (int s = 0; s < S; ++s) cnt += at_most(s, tk, tj);
+    const int c = (int)__reduce_add_sync(kFull, (unsigned)cnt);
     if (c <= kSortCap) {
       int off = cnt;  // inclusive prefix sum over lanes
 #pragma unroll
@@ -356,8 +329,8 @@ extern "C" int knn_select_launch(const void* d2, const void* cand, void* vals, v
   if (w > kWarp * kMaxPerThread || k > w || k < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const auto launch = k > kWarp ? launch_slots<true, 1, 2, 4, 8, 16, 21, 32>
-                                 : launch_slots<false, 1, 2, 4, 8, 16, 21, 32>;
+  const auto launch = k > kWarp && k <= 2 * kWarp ? launch_slots<true, 1, 2, 4, 8, 16, 21, 32>
+                                                  : launch_slots<false, 1, 2, 4, 8, 16, 21, 32>;
   return (int)launch(blocks, (cudaStream_t)stream, (const float*)d2, (const int32_t*)cand,
                      (float*)vals, (int32_t*)idx, n, w, k, (int32_t*)exact_rows);
 }

@@ -3,9 +3,9 @@
 Each case names what it exercises. The card tests
 (``tests/test_torch_{fps,knn_select}.py``) and the ``kernel_edges`` phase of
 ``chip_smoke.py`` hold each kernel bit-equal to its plain version on them,
-and K1's exact-path rows equal to what ``knn_exact_rows``, a model of its
-design, gives; the CPU tests hold the plain versions against JAX on the ones
-JAX can take.
+and K1's exact-path rows to the rows that its design must sort or must send
+to its exact path (``knn_path_rows``); the CPU tests hold the plain versions
+against JAX on the ones JAX can take.
 """
 
 from __future__ import annotations
@@ -107,9 +107,8 @@ def knn_rows(w: int, seed: int = 0) -> np.ndarray:
 def knn_wide_rows(w: int, seed: int = 0) -> tuple[list[str], np.ndarray]:
     """(labels, d2 [n, w] f32): rows for K1's 32 < k <= 64 design, which
     sorts the elements at or below a threshold taken from the lanes' pair
-    values (each lane's two smallest) when there are at most 128 of them
-    (``knn_sort_counts``). Live lanes hold d2 < 1e30, dead lanes the 1e30
-    sentinel."""
+    values (each lane's two smallest) when there are at most 128 of them.
+    Live lanes hold d2 < 1e30, dead lanes the 1e30 sentinel."""
     rng = np.random.default_rng(seed + 7 * w)
     labels, rows = [], []
 
@@ -151,11 +150,11 @@ def knn_wide_rows(w: int, seed: int = 0) -> tuple[list[str], np.ndarray]:
     # 64 < c <= 128: 90 live lanes, most in the first two slots
     r = live_at(np.r_[np.arange(64), rng.choice(np.arange(64, w), 26, replace=False)])
     add("c_64_to_128", r)
-    # c > 128 at the k-th pair value, <= 128 at a smaller one of the upper
-    # 32 (the second chance): live everywhere
+    # live everywhere: c near 128 at k = 64
     add("all_live", rng.uniform(0, 1, w).astype(np.float32))
-    # c > 128 at every pair value of the upper 32 (the exact path): the
-    # smallest values packed in 7 lanes' slots, more than 128 of them
+    # c > 128 at every 32 < k <= 64 (the exact path): the smallest values
+    # packed in 7 lanes' slots, more than 128 of them; only 14 pair values
+    # lie among them
     r = rng.uniform(1, 2, w).astype(np.float32)
     r[np.arange(w) % 32 < 7] = rng.uniform(0, 1, int((np.arange(w) % 32 < 7).sum()))
     add("packed_in_7_lanes", r)
@@ -171,38 +170,28 @@ def knn_wide_rows(w: int, seed: int = 0) -> tuple[list[str], np.ndarray]:
     return labels, np.stack(rows).astype(np.float32)
 
 
-def knn_sort_counts(d2: np.ndarray, k: int, second_chance: bool = True) -> np.ndarray:
-    """A model of K1's design: per row, the number c of elements at or
-    below its threshold, in the kernel's composite order (key, j) over its
-    S slots a lane. For k <= 32 the threshold is the k-th smallest lane
-    minimum; for 32 < k <= 64 the k-th smallest of the lanes' pair values,
-    or, where that leaves c > 128, the smallest of the pair values at ranks
-    32 to k - 1 with c >= k (``second_chance``; without it, the count at
-    the k-th pair value)."""
-    n, w = d2.shape
-    s = next(s for s in (1, 2, 4, 8, 16, 21, 32) if 32 * s >= w)
-    u = d2.view(np.uint32).astype(np.uint64)
-    key = np.where(u >> 31 == 1, ~u & 0xFFFFFFFF, u | 0x80000000)
-    key[u == 0x80000000] = 0x80000000                # -0.0 as +0.0
-    key[np.isnan(d2)] = 0xFFFFFFFF
-    comp = np.full((n, 32 * s), 0xFFFFFFFF, np.uint64)  # slots past the row's end
-    comp[:, :w] = key
-    comp = (comp << np.uint64(32)) | np.arange(32 * s, dtype=np.uint64)
-    per_lane = np.sort(comp.reshape(n, s, 32), axis=1)  # [row, rank in lane, lane]
-    if k <= 32:
-        return (comp <= np.sort(per_lane[:, 0], axis=1)[:, k - 1, None]).sum(1)
-    pairs = np.sort(per_lane[:, :2].reshape(n, -1), axis=1)
-    counts = np.stack([(comp <= pairs[:, r, None]).sum(1) for r in range(32, k)], 1)
-    second = np.where(counts >= k, counts, np.iinfo(counts.dtype).max).min(1)
-    return np.where(second_chance & (counts[:, -1] > 128), second, counts[:, -1])
-
-
-def knn_exact_rows(d2: np.ndarray, k: int) -> int:
-    """Rows that take K1's exact path by its design: c > 64 (k <= 32) or
-    c > 128 (32 < k <= 64), and every row when k > 64."""
+def knn_path_rows(name: str, d2: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """(rows K1 must sort, rows it must send to its exact path) of the case
+    ``name`` of ``knn_cases``, as boolean masks, by construction: k = 1
+    sorts every row (one element at or below the least lane minimum); for
+    32 < k <= 64, every row with fewer than 64 lanes below 1e30 (and no
+    NaN) sorts (see csrc/knn_select.cu: c <= L + 64), as does the wide row
+    live in slots 0 and 1 of every lane, and the rows packed in 7 lanes
+    take the exact path; k > 64 takes the exact path on every row. Rows
+    in neither mask may go either way."""
+    n = len(d2)
+    none = np.zeros(n, bool)
     if k > 64:
-        return d2.shape[0]
-    return int((knn_sort_counts(d2, k) > (64 if k <= 32 else 128)).sum())
+        return none, ~none
+    if k == 1:
+        return ~none, none
+    if k <= 32:
+        return none, none
+    few = ((d2 < _BIG).sum(1) < 64) & ~np.isnan(d2).any(1)
+    if "_wide_" not in name:
+        return few, none
+    labels = np.array(knn_wide_rows(d2.shape[1])[0])
+    return few | (labels == "c_64_to_128"), labels == "packed_in_7_lanes"
 
 
 def knn_cases(seed: int = 0) -> list[tuple[str, np.ndarray, np.ndarray, int]]:

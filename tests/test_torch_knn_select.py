@@ -15,13 +15,7 @@ import jax.numpy as jnp
 
 from geoformer_tpu.ops.knn_select_pallas import select_min_k_cand as jax_select
 from geoformer_tpu.ops.radius_graph import radius_knn as jax_radius_knn
-from geoformer_tpu_torch.kernels.edge_cases import (
-    knn_cases,
-    knn_exact_rows,
-    knn_rows,
-    knn_sort_counts,
-    knn_wide_rows,
-)
+from geoformer_tpu_torch.kernels.edge_cases import knn_cases, knn_path_rows, knn_rows
 from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand, select_min_k_cand_plain
 from geoformer_tpu_torch.ops.radius_graph import radius_knn
 
@@ -111,45 +105,15 @@ WIDE_CASES = ["w648_wide_k33", "w648_wide_k48", "w648_wide_k63", "w648_wide_k64"
 def test_plain_matches_topk_on_the_wide_cases(name):
     """32 < k <= 64 (kernels/edge_cases.py:knn_wide_rows: the exact solver's
     row shape, 63 / 64 / 65 live lanes, dead lanes among the pair values,
-    ties across the threshold, NaN and -0.0), NaN rows left out: values
-    and ids exactly equal to lax.top_k. By the card kernel's design
-    (knn_sort_counts), each row lands where it was built to: every row with
-    fewer than 64 live lanes and 1e30 elsewhere sorts (c <= 128), and at
-    k = 64 the rows built for c <= 64, for 64 < c <= 128, for the second
-    chance (c > 128 at the k-th pair value, not at a smaller one) and for
-    the exact path (c > 128 at each) do."""
+    ties across the threshold, rows packed in a few lanes, NaN and -0.0),
+    NaN rows left out: values and ids exactly equal to lax.top_k."""
     (_, d2, cand, k), = [c for c in knn_cases() if c[0] == name]
-    labels = knn_wide_rows(d2.shape[1])[0]
     keep = ~np.isnan(d2).any(1)
     got_v, got_i = select_min_k_cand(torch.from_numpy(d2[keep]), torch.from_numpy(cand[keep]), k)
     neg, pos = jax.lax.top_k(-jnp.asarray(d2[keep]), k)
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(-neg))
     np.testing.assert_array_equal(
         got_i.numpy(), np.asarray(jnp.take_along_axis(jnp.asarray(cand[keep]), pos, axis=1)))
-
-    c = dict(zip(labels, knn_sort_counts(d2, k)))
-    few = [lab for lab, r in zip(labels, d2) if (r < 1e30).sum() < 64 and not np.isnan(r).any()]
-    assert len(few) >= 8 and all(c[lab] <= 128 for lab in few)
-    if k == 64:
-        first = dict(zip(labels, knn_sort_counts(d2, k, second_chance=False)))
-        assert c["pairs_dead_slot1"] <= 64 and 64 < c["c_64_to_128"] <= 128
-        assert first["all_live"] > 128 >= c["all_live"]
-        assert c["packed_in_7_lanes"] > 128 and knn_exact_rows(d2, k) == 1
-
-
-def test_wide_threshold_sorts_every_row_with_fewer_than_64_live_lanes():
-    """The claim behind the exact-path share of 0 on the exact solver's
-    table: with L < 64 lanes below 1e30 and 1e30 elsewhere, at most L + 64
-    elements lie at or below the pair threshold, at every 32 < k <= 64."""
-    rng = np.random.default_rng(3)
-    for w in (648, 1024):
-        d2 = np.full((256, w), 1e30, np.float32)
-        n_live = rng.integers(0, 64, len(d2))
-        for r, n in zip(d2, n_live):
-            lanes = rng.choice(w, n, replace=False) if n % 2 else rng.choice(128, n, replace=False)
-            r[lanes] = rng.integers(0, 5, n) / 4      # ties among the live values too
-        for k in (33, 47, 64):
-            assert (knn_sort_counts(d2, k) <= n_live + 64).all()
 
 
 def _jit_exact(f, *args):
@@ -216,9 +180,10 @@ def test_kernel_matches_plain_on_corner_cases(cuda):
     at the threshold, exhausted and dead rows, the smallest values in one
     thread's slots or in 15, NaN and -0.0, W = 16, 70, 648, 1024, k = W;
     for 32 < k <= 64 the rows of knn_wide_rows), bit-equal to the plain
-    version; both of the kernel's paths run, the exact path on the rows
-    that the design sends there (knn_exact_rows) and on no row with fewer
-    than 64 live lanes at k <= 64."""
+    version; both of the kernel's paths run: no exact-path row among the
+    rows the design must sort, every row among those it must send there
+    (knn_path_rows: every row with fewer than 64 live lanes sorts at
+    32 < k <= 64)."""
     exact = {}
     for name, d2_np, cand_np, k in knn_cases():
         d2, cand = torch.from_numpy(d2_np).to(cuda), torch.from_numpy(cand_np).to(cuda)
@@ -228,12 +193,12 @@ def test_kernel_matches_plain_on_corner_cases(cuda):
         assert torch.equal(kv.view(torch.int32), pv.view(torch.int32)), name
         assert torch.equal(ki, pi), name
         exact[name] = int(rows)
-        assert exact[name] == knn_exact_rows(d2_np, k), name
-        few = torch.from_numpy(((d2_np < 1e30).sum(1) < 64) & ~np.isnan(d2_np).any(1)).to(cuda)
-        if 32 < k <= 64:
+        sort, to_exact = knn_path_rows(name, d2_np, k)
+        for mask, want in ((sort, 0), (to_exact, int(to_exact.sum()))):
             rows.zero_()
-            select_min_k_cand(d2[few], cand[few], k, exact_rows=rows)
-            assert int(rows) == 0, name
+            pick = torch.from_numpy(mask).to(cuda)
+            select_min_k_cand(d2[pick], cand[pick], k, exact_rows=rows)
+            assert int(rows) == want, name
     assert exact["w70_k70"] == exact["w1024_k1024"] == 32  # k > 64: every row
     assert exact["w648_k16"] > 0 and exact["w648_k1"] == 0
     assert exact["w648_wide_k64"] > 0 and exact["w1024_wide_k64"] > 0  # c > 128

@@ -9,13 +9,15 @@ directory that lacks the port's package. It
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from geoformer_tpu_torch/csrc into build/;
 3. checks the CUDA path against the CPU path on a small scene (same seeded
-   weights: fg indices equal, scores within 1e-3), then holds K1 and K2
-   bit-equal to their plain versions on the corner cases of their designs
-   (``kernel_edges``: kernels/edge_cases.py; K2's cluster size and K1's
-   exact-path rows printed per case, none among the rows K1's design must
-   sort and all among those it must send to its exact path,
-   ``knn_path_rows``) and times K2's chain of dependent picks
-   on an all-invalid scene, where no distance is updated;
+   weights: fg indices equal, scores within 1e-3), then holds K1, K2 and
+   K3 bit-equal to their plain versions on the corner cases of their
+   designs (``kernel_edges``: kernels/edge_cases.py; K2's cluster size and
+   K1's exact-path rows printed per case, none among the rows K1's design
+   must sort and all among those it must send to its exact path,
+   ``knn_path_rows``; K3 in each of its designs, on every width class,
+   misaligned views and a table of more than 2^31 words) and times K2's
+   chain of dependent picks on an all-invalid scene, where no distance is
+   updated;
 4. drives the main path, Engine.eval_batch (the supervised eval forward +
    matrix NMS), over N >= 2 synthetic 250,000-point scenes at the
    config/test_geoformer_scannet.yaml settings with seeded random weights,
@@ -73,8 +75,11 @@ directory that lacks the port's package. It
    and --profile_dir, counted: its PLY/OBJ files, their semantic labels equal to
    the run's argmax, a trace naming K1's and K2's kernels, and K1's and K2's
    launches equal to the plain cli.test run's;
-9. holds K3 against its plain version at the probe's shape and at the
-   forward's foreground gather, K2 at the two shapes of the few-shot
+9. holds K3 against its plain version at the probe's shape, at the
+   forward's foreground gather and at one block's slab of the geodesic fine
+   sweep (4,096 ids from scene 0's radius-kNN table into a [131073, 128]
+   table), each timed beside the per-unit design on a ``k3_parent_vs_new``
+   line, K2 at the two shapes of the few-shot
    path (support instance, 20,000-point aggregator) and K1 at the few-shot
    path's table, captured there;
 10. drives the training paths (``train_paths``): writes a dataset of 4B
@@ -190,41 +195,12 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 
 
 def device_ms(torch, fn, reps: int, flush=None, only=None) -> float:
-    """Mean device time of fn() from torch.profiler (sum over the CUDA
-    kernels and copies it enqueues, or over those whose name holds
-    ``only``). For kernels of a few microseconds, where a loop between two
-    CUDA events runs at the host's launch pace and not at the device's.
-    With ``flush`` (a buffer several times the L2's size) every call finds
-    the L2 cold: the buffer is filled before it, and the fill kernels' time
-    is left out."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one fn() from torch.profiler (each kernel's median
+    launch), the L2 flushed before every call with ``flush``
+    (tools/k3_sources.py ``device_ms``)."""
+    from geoformer_tpu_torch.tools.k3_sources import device_ms as profiled
 
-    fn()
-    torch.cuda.synchronize()
-    # a capture now and then comes back with no device event at all (seen
-    # once in ~10 runs of this script): take another one, up to three
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush.fill_(0.0)
-                fn()
-            torch.cuda.synchronize()
-        cuda = torch.autograd.DeviceType.CUDA
-        events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-                  if e.device_type == cuda]
-        if events:
-            break
-    if flush is not None:
-        if not any("FillFunctor" in k for k, _ in events):
-            fail("the L2 flush's fill kernel was not found in the profile")
-        events = [(k, t) for k, t in events if "FillFunctor" not in k]
-    if only is not None:
-        events = [(k, t) for k, t in events if only in k]
-    total_us = sum(t for _, t in events)
-    if total_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return total_us / 1e3 / reps
+    return profiled(fn, reps, flush=flush, only=only)
 
 
 def check_finite(torch, name, t) -> None:
@@ -372,21 +348,31 @@ def row_gather_row(torch, row_gather, row_gather_plain, x, idx, launches) -> dic
     times: with the L2 flushed before every call (``ms``, ``plain_ms``,
     ``library_ms``, to stand beside a bound at the device memory's rate) and
     with the L2 warm (``l2_warm``); ``wrapper_loop_ms`` is the pace of a
-    loop over the wrapper, which the host sets."""
+    loop over the wrapper, which the host sets. The bound reads each
+    distinct row once (``bound_ms_all_ids``: each id's row). Then the first
+    design (``per_unit``, one unit a thread) against the new one, in turns,
+    flushed and warm, on a ``k3_parent_vs_new`` line of its own."""
+    from geoformer_tpu_torch.tools.k3_sources import compare, gather_bytes, l2_flush
+
     n, q = idx.shape[0], x.shape[1]
     idx64 = idx.reshape(-1).long()
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=x.device)  # 256 MB
+    moved = gather_bytes(x, idx)
     fns = {"ms": lambda: row_gather(x, idx), "plain_ms": lambda: row_gather_plain(x, idx),
            "library_ms": lambda: torch.index_select(x, 0, idx64)}
-    return kernel_row(
+    row = kernel_row(
         torch, name="row_gather", source="geoformer_tpu_torch/csrc/row_gather.cu",
         replaces="tools/pallas_gather_probe.py:65", launches=launches,
         kernel=fns["ms"], plain=fns["plain_ms"], library=fns["library_ms"],
-        # each gathered row read once and written once, each id read once
-        bytes_=n * (2 * q * 4 + 4), ops=0, shape=[x.shape[0], q, n], reps=50, plain_reps=50,
-        timer=functools.partial(device_ms, flush=flush),
+        bytes_=moved["bytes"], ops=0, shape=[x.shape[0], q, n], reps=50, plain_reps=50,
+        timer=functools.partial(device_ms, flush=l2_flush(x.device)),
         l2_warm={k: device_ms(torch, fn, 50) for k, fn in fns.items()},
-        wrapper_loop_ms=time_ms(torch, fns["ms"], 50))
+        wrapper_loop_ms=time_ms(torch, fns["ms"], 50), distinct_rows=moved["distinct_rows"],
+        bound_ms_all_ids=moved["bytes_all_ids"] / HBM_BYTES_PER_S * 1e3)
+    versus = compare({d: functools.partial(row_gather, x, idx, design=d)
+                      for d in ("per_unit", "rows")}, ["per_unit", "rows", "rows", "per_unit"])
+    emit({"phase": "k3_parent_vs_new", "shape": row["shape"], **versus})
+    row["per_unit_ms"] = versus["per_unit"]["ms"]
+    return row
 
 
 def write_yaml(path: str, cfg) -> str:
@@ -495,18 +481,58 @@ def small_reference(torch, cfg_mod, Engine, synthetic_batch) -> dict:
     return res
 
 
+# K3 on a table of more than 2^31 words ([K3_BIG_ROWS, 128] f32, 8.6 GB):
+# ids at its end, where a 32-bit word offset would wrap
+K3_BIG_ROWS = 16777472
+
+
+def k3_large_table(torch) -> list:
+    """K3 in every design bit-equal to its plain version on a table of more
+    than 2^31 words, as 16-byte units (the aligned table) and as words (the
+    same buffer viewed one word in): its last rows and its first, seeded,
+    gathered by ids at both ends."""
+    from geoformer_tpu_torch.kernels.row_gather import DESIGNS, row_gather, row_gather_plain
+
+    p, q = K3_BIG_ROWS, 128
+    flat = torch.zeros(p * q + 1, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ends = 64 * q + 1
+    flat[:ends] = torch.randn(ends, generator=gen, device="cuda")
+    flat[-ends:] = torch.randn(ends, generator=gen, device="cuda")
+    idx = torch.cat([torch.arange(p - 64, p), torch.arange(0, 64), torch.arange(p - 1, p - 65, -1)])
+    idx = idx.to(torch.int32).cuda()
+    cases = []
+    for misaligned in (False, True):
+        x = flat[int(misaligned):int(misaligned) + p * q].view(p, q)
+        want = bits(torch, row_gather_plain(x, idx))
+        ok = all(torch.equal(bits(torch, row_gather(x, idx, design=d)), want) for d in DESIGNS)
+        cases.append({"kernel": "row_gather", "case": "over_2^31_words", "shape": [p, q, idx.numel()],
+                      "words": p * q, "misaligned": misaligned, "equal": ok})
+    del flat, x
+    torch.cuda.empty_cache()
+    return cases
+
+
 def kernel_edges(torch) -> dict:
-    """K1 and K2 bit-equal to their plain versions on the corner cases of
-    their designs, K1's exact path taken by no row that its design must
-    sort and by every row that it must send there (``knn_path_rows``), and
-    the time of K2's chain of picks with no distance to update (an
-    all-invalid scene of the main path's size)."""
-    from geoformer_tpu_torch.kernels.edge_cases import fps_cases, knn_cases, knn_path_rows
+    """K1, K2 and K3 bit-equal to their plain versions on the corner cases
+    of their designs (K3 in each design, and on a table of more than 2^31
+    words), K1's exact path taken by no row that its design must sort and
+    by every row that it must send there (``knn_path_rows``), and the time
+    of K2's chain of picks with no distance to update (an all-invalid scene
+    of the main path's size)."""
+    from geoformer_tpu_torch.kernels.edge_cases import (
+        fps_cases,
+        gather_cases,
+        gather_table,
+        knn_cases,
+        knn_path_rows,
+    )
     from geoformer_tpu_torch.kernels.fps import cluster_size, fps, fps_plain
     from geoformer_tpu_torch.kernels.knn_select import (
         select_min_k_cand,
         select_min_k_cand_plain,
     )
+    from geoformer_tpu_torch.kernels.row_gather import DESIGNS, row_gather, row_gather_plain
 
     cases, bad = [], []
     for name, d2_np, cand, k in knn_cases():
@@ -530,6 +556,15 @@ def kernel_edges(torch) -> dict:
         cases.append({"kernel": "fps", "case": name, "shape": [*pts.shape[:2], ns],
                       "cluster_size": cluster_size(pts.shape[1]), "equal": ok})
         bad += [] if ok else [f"fps {name}"]
+    for name, x, idx, misaligned in gather_cases():
+        x, idx = gather_table(x, misaligned, "cuda"), torch.from_numpy(idx).cuda()
+        want = bits(torch, row_gather_plain(x, idx))
+        ok = all(torch.equal(bits(torch, row_gather(x, idx, design=d)), want) for d in DESIGNS)
+        cases.append({"kernel": "row_gather", "case": name, "shape": [*x.shape, idx.numel()],
+                      "misaligned": misaligned, "equal": ok})
+        bad += [] if ok else [f"row_gather {name}"]
+    cases += k3_large_table(torch)
+    bad += [f"row_gather {c['case']}" for c in cases[-2:] if not c["equal"]]
     p, ns = 50000, 2048
     pts = torch.zeros(1, p, 3, device="cuda")
     none = torch.zeros(1, p, dtype=torch.bool, device="cuda")
@@ -2832,6 +2867,7 @@ def main(argv=None) -> int:
     )
     from geoformer_tpu_torch.synthetic import synthetic_batch
     from geoformer_tpu_torch.tools import gather_probe
+    from geoformer_tpu_torch.tools.k3_sources import fg_gather_inputs, sweep_slab, train_queries
 
     smi = nvidia_smi()
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
@@ -2901,14 +2937,13 @@ def main(argv=None) -> int:
     select_min_k_cand.capture, fps.capture = knn_inputs, fps_inputs
     engine.eval_batch(batch)
     select_min_k_cand.capture = fps.capture = None
-    # the forward's own foreground gather (gather_rows(point_feats, fg_idx)),
-    # the real-size input of the K3 phase
-    with torch.no_grad():
-        tb = engine.to_device(batch)
-        point_feats, _, semantic_preds, _ = engine.model.forward_backbone(tb)
-        fg_idx, _ = engine.model.foreground_pack(semantic_preds, tb["point_mask"])
-    gather_x, gather_idx = point_feats[0].contiguous(), fg_idx[0].to(torch.int32)
-    del out, engine, tb, point_feats, semantic_preds, fg_idx
+    # the real-size inputs of the K3 phase: the forward's own foreground
+    # gather (gather_rows(point_feats, fg_idx)) and one block's slab of the
+    # geodesic fine sweep's gather on this scene's radius-kNN table, into a
+    # table as wide as the training step's (one more forward)
+    gather_x, gather_idx = fg_gather_inputs(engine, batch)
+    sweep_x, sweep_idx = sweep_slab(engine, batch, train_queries())
+    del out, engine
     torch.cuda.empty_cache()
 
     # ---------------- kernel phases on the captured main-path tables ----------------
@@ -2998,14 +3033,19 @@ def main(argv=None) -> int:
             r["launches"] for r in fs_rows) != by_path["driver_test_fs"]["fps"]:
         fail(f"few-shot fps launches by shape {fs_by_shape} do not match the held shapes {shapes}")
 
-    # ---------------- K3 at the probe's shape and at the forward's fg gather ----------------
+    # ---------------- K3 at the probe's shape, the forward's fg gather, the sweep's slab ----------------
     px, pidx = (torch.from_numpy(a).cuda() for a in gather_probe.probe_inputs())
     k3_row = row_gather_row(torch, row_gather, row_gather_plain, px, pidx, probe_launches)
-    # the forward gathers with PyTorch's indexing, so this shape's launches
-    # are what the three counted model paths read off K3's counter
-    k3_large = row_gather_row(
-        torch, row_gather, row_gather_plain, gather_x, gather_idx,
-        sum(by_path[p]["row_gather"] for p in ("eval_batch", "driver_test", "driver_test_fs")))
+    # the forward and the sweep gather with PyTorch's indexing, so these
+    # shapes' launches are what the three counted model paths read off K3's
+    # counter
+    model_launches = sum(by_path[p]["row_gather"]
+                         for p in ("eval_batch", "driver_test", "driver_test_fs"))
+    k3_large = row_gather_row(torch, row_gather, row_gather_plain, gather_x, gather_idx,
+                              model_launches)
+    k3_sweep = row_gather_row(torch, row_gather, row_gather_plain, sweep_x, sweep_idx,
+                              model_launches)
+    del gather_x, gather_idx, sweep_x, sweep_idx
 
     # the training paths: cli.train, the chain through cli.test, cli.train_fs
     trained = train_paths(torch, cfg_mod, Engine, here, TRAIN_BATCH, counters, data)
@@ -3044,7 +3084,7 @@ def main(argv=None) -> int:
     # the floor of K2's design beside its operations bound: the chain of
     # dependent picks, timed with no distance to update
     k2_row["chain_floor"] = edges["fps_chain"]
-    k3_row["other_shapes"] = [k3_large]
+    k3_row["other_shapes"] = [k3_large, k3_sweep]
     rows = [k1_row, k2_row, k3_row]
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()

@@ -1,8 +1,9 @@
-"""Corner cases of the K1 and K2 kernels' designs, as seeded numpy inputs.
+"""Corner cases of the K1, K2 and K3 kernels' designs, as seeded numpy inputs.
 
 Each case names what it exercises. The card tests
-(``tests/test_torch_{fps,knn_select}.py``) and the ``kernel_edges`` phase of
-``chip_smoke.py`` hold each kernel bit-equal to its plain version on them,
+(``tests/test_torch_{fps,knn_select,gather}.py``) and the ``kernel_edges``
+phase of ``chip_smoke.py`` hold each kernel bit-equal to its plain version on
+them,
 and K1's exact-path rows to the rows that its design must sort or must send
 to its exact path (``knn_path_rows``); the CPU tests hold the plain versions
 against JAX on the ones JAX can take.
@@ -10,7 +11,10 @@ against JAX on the ones JAX can take.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 _BIG = 1e30  # dead-candidate sentinel of the radius graph
 
@@ -213,3 +217,49 @@ def knn_cases(seed: int = 0) -> list[tuple[str, np.ndarray, np.ndarray, int]]:
         for k in ks:
             cases.append((f"w{w}_wide_k{k}", d2, cand, k))
     return cases
+
+
+@functools.lru_cache(maxsize=2)
+def gather_cases(seed: int = 0) -> tuple[tuple[str, np.ndarray, np.ndarray, bool], ...]:
+    """(name, x [P,q] f32, idx [n] i32, misaligned) for K3: every width class
+    of its design (q = 1, 3, 4, 7, 8, 16, 128, 256, 1000: one lane a row up to
+    a loop over 32-lane chunks, 16-byte units and words), each also as a
+    16-byte-misaligned table view (``gather_table``), which takes words; the
+    probe's and the foreground gather's shapes; more rows than one wave of
+    blocks covers at q = 128 (the grid-stride loop); n = 1, P = 1 and one id
+    repeated. Tables hold NaNs with a payload and -0.0; ids include 0 and
+    P - 1, repeated."""
+    rng = np.random.default_rng(seed)
+
+    def table(p, q):
+        x = rng.normal(size=(p, q)).astype(np.float32)
+        x.reshape(-1).view(np.uint32)[::3] |= 0x7FC00123  # NaNs with a payload
+        x[p // 2] = -0.0
+        return x
+
+    def ids(p, n):
+        i = rng.integers(0, p, n).astype(np.int32)
+        i[:4] = (0, p - 1, p - 1, 0)
+        return i
+
+    cases = []
+    for q in (1, 3, 4, 7, 8, 16, 128, 256, 1000):
+        x, i = table(997, q), ids(997, 777)
+        cases += [(f"q{q}", x, i, False), (f"q{q}_misaligned", x, i, True)]
+    cases += [("probe_512x128_n256", table(512, 128), ids(512, 256), False),
+              ("fg_250000x16_n131072", table(250000, 16), ids(250000, 131072), False),
+              ("grid_stride_q128_n60000", table(5000, 128), ids(5000, 60000), False),
+              ("n1", table(50, 16), np.array([49], np.int32), False),
+              ("p1", table(1, 128), np.zeros(5, np.int32), False),
+              ("n1_p1_q3", table(1, 3), np.zeros(1, np.int32), True),
+              ("one_id_repeated", table(300, 16), np.full(1000, 17, np.int32), False)]
+    return tuple(cases)
+
+
+def gather_table(x: np.ndarray, misaligned: bool, device) -> torch.Tensor:
+    """x as a contiguous [P, q] f32 tensor on ``device``; ``misaligned``: a
+    view that starts one word into its buffer, so not 16-byte aligned."""
+    flat = torch.empty(x.size + 1, dtype=torch.float32, device=device)
+    view = flat[int(misaligned):int(misaligned) + x.size].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    return view

@@ -229,6 +229,21 @@ def _fast_sweep_orders(ccoords, cmask, cnb, cw, c_cap, cblock, dist, n_steps, n_
     return dist, it
 
 
+def _fine_edges(nb, w, positions, point_mask, cell, block_size, fine_k=None):
+    """The fine sweep's edge table: the gated edges [P, K] cut to the nearest
+    fine_k slots, the points sorted along the spatial key at 2x the coarse
+    ``cell``, the edges remapped into that order and padded (``_pad_edges``)
+    -> (perm, inv, nb2 [PP, K2], w2 [PP, K2], PP)."""
+    p = nb.shape[0]
+    if fine_k is not None and fine_k < nb.shape[1]:
+        nb, w = nb[:, :fine_k], w[:, :fine_k]
+    perm = _spatial_order(positions, point_mask, cell * 2)
+    inv = _invert_perm(perm)
+    nb_s = F.pad(inv, (0, 1), value=p)[nb[perm]]
+    nb2, w2, pp = _pad_edges(nb_s, w[perm], p, block_size)
+    return perm, inv, nb2, w2, pp
+
+
 def _hier_scene(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, positions,
                 n_steps, fine_sweeps=6, cell_factor=2.0, c_cap=None, kc=32, k_sub=16,
                 block_size=512, fine_k=None, coarse_eps=0.0):
@@ -259,13 +274,7 @@ def _hier_scene(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, positio
         n_live=int(cmask.sum()), eps=coarse_eps)
 
     # prolong + fixed fine smoothing sweeps over the nearest fine_k slots
-    if fine_k is not None and fine_k < nb.shape[1]:
-        nb, w = nb[:, :fine_k], w[:, :fine_k]
-    perm = _spatial_order(positions, point_mask, cell * 2)
-    inv = _invert_perm(perm)
-    nb_s = F.pad(inv, (0, 1), value=p)[nb[perm]]
-    w_s = w[perm]
-    nb2, w2, pp = _pad_edges(nb_s, w_s, p, block_size)
+    perm, inv, nb2, w2, pp = _fine_edges(nb, w, positions, point_mask, cell, block_size, fine_k)
 
     cdist_pad = F.pad(cdist[:c_cap], (0, 0, 0, 1), value=INF)
     p2c_sorted = p2c[perm].clamp(max=c_cap)

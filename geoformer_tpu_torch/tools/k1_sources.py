@@ -32,20 +32,26 @@ from geoformer_tpu_torch import kernels
 from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand_plain
 
 
-def build(label: str, src: str):
-    """The source's library and its ptxas report (one nvcc, alone)."""
+def compile_source(name: str, src: str):
+    """The source's library (build/lib<name>.so) and its ptxas report (one
+    nvcc, alone, at the port's flags)."""
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    out = os.path.join(kernels.BUILD_DIR, f"libk1_{label}.so")
+    out = os.path.join(kernels.BUILD_DIR, f"lib{name}.so")
     r = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", src, "-o", out],
                        capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
-    lib = ctypes.CDLL(out)
+    report = [" ".join(line.split()) for line in (r.stdout + r.stderr).splitlines()
+              if "Compiling entry" in line or "Used" in line or "spill" in line]
+    return ctypes.CDLL(out), report
+
+
+def build(label: str, src: str):
+    """K1's library from ``src`` and its ptxas report."""
+    lib, report = compile_source(f"k1_{label}", src)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.knn_select_launch.argtypes = [p, p, p, p, i, i, i, p, p]
     lib.knn_select_launch.restype = i
-    report = [" ".join(line.split()) for line in (r.stdout + r.stderr).splitlines()
-              if "Compiling entry" in line or "Used" in line or "spill" in line]
     return lib, report
 
 

@@ -2,9 +2,12 @@
 
 The plain version (geoformer_tpu_torch/kernels/row_gather.py) is held
 exactly against the TPU probe's own inputs and answer: the four Pallas probe
-kernels of tools/pallas_gather_probe.py in interpret mode and ``jnp.take``.
-A gather moves bits, so every comparison is exact (no tolerance). The CUDA
-kernel is held against the plain version on the card (marker ``cuda``).
+kernels of tools/pallas_gather_probe.py in interpret mode and ``jnp.take``,
+and against numpy's ``x[idx]`` on the corner cases of the kernel's design
+(``kernels/edge_cases.py:gather_cases``). A gather moves bits, so every
+comparison is exact (no tolerance). The CUDA kernel, in each of its designs,
+is held against the plain version on the card on those cases (marker
+``cuda``).
 """
 
 import numpy as np
@@ -12,7 +15,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from geoformer_tpu_torch.kernels.row_gather import row_gather, row_gather_plain
+from geoformer_tpu_torch.kernels.edge_cases import gather_cases, gather_table
+from geoformer_tpu_torch.kernels.row_gather import DESIGNS, row_gather, row_gather_plain
 from geoformer_tpu_torch.tools import gather_probe
 from tools import pallas_gather_probe
 
@@ -56,6 +60,30 @@ def test_plain_moves_bits_at_any_width(p, q, n):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+CASES = {name: (x, idx, misaligned) for name, x, idx, misaligned in gather_cases()}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_on_the_kernels_corner_cases(case):
+    """The plain version, and the wrapper on the CPU in every design, equal
+    numpy's ``x[idx]`` bit for bit on each corner case, the misaligned
+    table views included."""
+    x, idx, misaligned = CASES[case]
+    t = gather_table(x, misaligned, "cpu")
+    assert t.is_contiguous() and (t.data_ptr() % 16 != 0) == misaligned
+    want = _bits(x[idx])
+    np.testing.assert_array_equal(_bits(row_gather_plain(t, torch.from_numpy(idx)).numpy()), want)
+    for design in DESIGNS:
+        got = row_gather(t, torch.from_numpy(idx), design=design).numpy()
+        np.testing.assert_array_equal(_bits(got), want)
+
+
+def test_unknown_design_raises():
+    x, idx, _ = CASES["q16"]
+    with pytest.raises(ValueError, match="unknown design"):
+        row_gather(torch.from_numpy(x), torch.from_numpy(idx), design="tma")
+
+
 def test_run_probe_on_cpu_and_without_a_card():
     assert gather_probe.run_probe("cpu") == {"row_gather": "OK", "plain": "OK"}
     assert gather_probe.main(["--device", "cpu"]) == 0
@@ -72,18 +100,21 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,q,n", [(512, 128, 256), (1000, 7, 333), (250000, 16, 131072)])
-def test_kernel_matches_plain_on_card(cuda, p, q, n):
-    g = torch.Generator().manual_seed(p + q)
-    x = torch.randn(p, q, generator=g)
-    x.view(torch.int32).reshape(-1)[::3] |= 0x7FC00123
-    idx = torch.randint(0, p, (n, 1), generator=g, dtype=torch.int32)
-    x, idx = x.to(cuda), idx.to(cuda)
-    before = row_gather.launches
-    out = row_gather(x, idx)
-    torch.cuda.synchronize()
-    assert row_gather.launches == before + 1
-    assert torch.equal(out.view(torch.int32), row_gather_plain(x, idx).view(torch.int32))
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_matches_plain_on_card(cuda, case):
+    """Every design of the kernel bit-equal to the plain version on each
+    corner case (width classes, misaligned views, n = 1, P = 1, ids 0 and
+    P - 1, repeated ids, NaN payloads), one launch counted a call."""
+    x, idx, misaligned = CASES[case]
+    x, idx = gather_table(x, misaligned, cuda), torch.from_numpy(idx).to(cuda)
+    want = row_gather_plain(x, idx).view(torch.int32)
+    for design in DESIGNS:
+        before = row_gather.launches
+        out = row_gather(x, idx, design=design)
+        torch.cuda.synchronize()
+        assert row_gather.launches == before + 1
+        assert torch.equal(out.view(torch.int32), want), design
     assert gather_probe.run_probe() == {"row_gather": "OK", "plain": "OK"}
+    q = x.shape[1]
     with pytest.raises(ValueError):  # a strided table would need a hidden copy
         row_gather(torch.cat([x, x], dim=1)[:, :q], idx)

@@ -14,8 +14,9 @@ directory that lacks the port's package. It
    designs (``kernel_edges``: kernels/edge_cases.py; K2's cluster size and
    K1's exact-path rows printed per case, none among the rows K1's design
    must sort and all among those it must send to its exact path,
-   ``knn_path_rows``; K3 in each of its designs, on every width class,
-   misaligned views and a table of more than 2^31 words) and times K2's
+   ``knn_path_rows``; K3 on every width class at either side of its
+   rows-a-thread threshold, misaligned views and a table of more than 2^31
+   words, as 16-byte units, words and by the per-unit kernel) and times K2's
    chain of dependent picks on an all-invalid scene, where no distance is
    updated;
 4. drives the main path, Engine.eval_batch (the supervised eval forward +
@@ -78,7 +79,7 @@ directory that lacks the port's package. It
 9. holds K3 against its plain version at the probe's shape, at the
    forward's foreground gather and at one block's slab of the geodesic fine
    sweep (4,096 ids from scene 0's radius-kNN table into a [131073, 128]
-   table), each timed beside the per-unit design on a ``k3_parent_vs_new``
+   table), each timed beside the per-unit kernel on a ``k3_parent_vs_new``
    line, K2 at the two shapes of the few-shot
    path (support instance, 20,000-point aggregator) and K1 at the few-shot
    path's table, captured there;
@@ -197,8 +198,8 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 def device_ms(torch, fn, reps: int, flush=None, only=None) -> float:
     """Device time of one fn() from torch.profiler (each kernel's median
     launch), the L2 flushed before every call with ``flush``
-    (tools/k3_sources.py ``device_ms``)."""
-    from geoformer_tpu_torch.tools.k3_sources import device_ms as profiled
+    (tools/profiling.py ``device_ms``)."""
+    from geoformer_tpu_torch.tools.profiling import device_ms as profiled
 
     return profiled(fn, reps, flush=flush, only=only)
 
@@ -349,10 +350,12 @@ def row_gather_row(torch, row_gather, row_gather_plain, x, idx, launches) -> dic
     ``library_ms``, to stand beside a bound at the device memory's rate) and
     with the L2 warm (``l2_warm``); ``wrapper_loop_ms`` is the pace of a
     loop over the wrapper, which the host sets. The bound reads each
-    distinct row once (``bound_ms_all_ids``: each id's row). Then the first
-    design (``per_unit``, one unit a thread) against the new one, in turns,
-    flushed and warm, on a ``k3_parent_vs_new`` line of its own."""
-    from geoformer_tpu_torch.tools.k3_sources import compare, gather_bytes, l2_flush
+    distinct row once (``bound_ms_all_ids``: each id's row). Then the
+    per-unit kernel (``per_unit``, the first design: one unit a thread)
+    against the new one, in turns, flushed and warm, on a
+    ``k3_parent_vs_new`` line of its own."""
+    from geoformer_tpu_torch.tools.k3_sources import gather_bytes, per_unit
+    from geoformer_tpu_torch.tools.profiling import compare, l2_flush
 
     n, q = idx.shape[0], x.shape[1]
     idx64 = idx.reshape(-1).long()
@@ -368,8 +371,9 @@ def row_gather_row(torch, row_gather, row_gather_plain, x, idx, launches) -> dic
         l2_warm={k: device_ms(torch, fn, 50) for k, fn in fns.items()},
         wrapper_loop_ms=time_ms(torch, fns["ms"], 50), distinct_rows=moved["distinct_rows"],
         bound_ms_all_ids=moved["bytes_all_ids"] / HBM_BYTES_PER_S * 1e3)
-    versus = compare({d: functools.partial(row_gather, x, idx, design=d)
-                      for d in ("per_unit", "rows")}, ["per_unit", "rows", "rows", "per_unit"])
+    versus = compare({"per_unit": functools.partial(per_unit, x, idx),
+                      "rows": functools.partial(row_gather, x, idx)},
+                     ["per_unit", "rows", "rows", "per_unit"])
     emit({"phase": "k3_parent_vs_new", "shape": row["shape"], **versus})
     row["per_unit_ms"] = versus["per_unit"]["ms"]
     return row
@@ -487,27 +491,30 @@ K3_BIG_ROWS = 16777472
 
 
 def k3_large_table(torch) -> list:
-    """K3 in every design bit-equal to its plain version on a table of more
-    than 2^31 words, as 16-byte units (the aligned table) and as words (the
-    same buffer viewed one word in): its last rows and its first, seeded,
-    gathered by ids at both ends."""
-    from geoformer_tpu_torch.kernels.row_gather import DESIGNS, row_gather, row_gather_plain
+    """K3 bit-equal to its plain version on a table of more than 2^31 words,
+    [K3_BIG_ROWS, 128] (rows of 32 16-byte units) and the same buffer viewed
+    as rows of 1,024 words (the per-unit kernel), each aligned (16-byte
+    units) and viewed one word in (words): its last rows and its first,
+    seeded, gathered by ids at both ends."""
+    from geoformer_tpu_torch.kernels.row_gather import row_gather, row_gather_plain
 
-    p, q = K3_BIG_ROWS, 128
-    flat = torch.zeros(p * q + 1, dtype=torch.float32, device="cuda")
+    words = K3_BIG_ROWS * 128
+    flat = torch.zeros(words + 1, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    ends = 64 * q + 1
+    ends = 64 * 1024 + 1
     flat[:ends] = torch.randn(ends, generator=gen, device="cuda")
     flat[-ends:] = torch.randn(ends, generator=gen, device="cuda")
-    idx = torch.cat([torch.arange(p - 64, p), torch.arange(0, 64), torch.arange(p - 1, p - 65, -1)])
-    idx = idx.to(torch.int32).cuda()
     cases = []
-    for misaligned in (False, True):
-        x = flat[int(misaligned):int(misaligned) + p * q].view(p, q)
-        want = bits(torch, row_gather_plain(x, idx))
-        ok = all(torch.equal(bits(torch, row_gather(x, idx, design=d)), want) for d in DESIGNS)
-        cases.append({"kernel": "row_gather", "case": "over_2^31_words", "shape": [p, q, idx.numel()],
-                      "words": p * q, "misaligned": misaligned, "equal": ok})
+    for q in (128, 1024):
+        p = words // q
+        idx = torch.cat([torch.arange(p - 64, p), torch.arange(0, 64),
+                         torch.arange(p - 1, p - 65, -1)]).to(torch.int32).cuda()
+        for misaligned in (False, True):
+            x = flat[int(misaligned):int(misaligned) + words].view(p, q)
+            ok = torch.equal(bits(torch, row_gather(x, idx)), bits(torch, row_gather_plain(x, idx)))
+            cases.append({"kernel": "row_gather", "case": "over_2^31_words",
+                          "shape": [p, q, idx.numel()], "words": words,
+                          "misaligned": misaligned, "equal": ok})
     del flat, x
     torch.cuda.empty_cache()
     return cases
@@ -515,11 +522,11 @@ def k3_large_table(torch) -> list:
 
 def kernel_edges(torch) -> dict:
     """K1, K2 and K3 bit-equal to their plain versions on the corner cases
-    of their designs (K3 in each design, and on a table of more than 2^31
-    words), K1's exact path taken by no row that its design must sort and
-    by every row that it must send there (``knn_path_rows``), and the time
-    of K2's chain of picks with no distance to update (an all-invalid scene
-    of the main path's size)."""
+    of their designs (K3 also on a table of more than 2^31 words), K1's
+    exact path taken by no row that its design must sort and by every row
+    that it must send there (``knn_path_rows``), and the time of K2's chain
+    of picks with no distance to update (an all-invalid scene of the main
+    path's size)."""
     from geoformer_tpu_torch.kernels.edge_cases import (
         fps_cases,
         gather_cases,
@@ -532,7 +539,7 @@ def kernel_edges(torch) -> dict:
         select_min_k_cand,
         select_min_k_cand_plain,
     )
-    from geoformer_tpu_torch.kernels.row_gather import DESIGNS, row_gather, row_gather_plain
+    from geoformer_tpu_torch.kernels.row_gather import row_gather, row_gather_plain
 
     cases, bad = [], []
     for name, d2_np, cand, k in knn_cases():
@@ -558,13 +565,13 @@ def kernel_edges(torch) -> dict:
         bad += [] if ok else [f"fps {name}"]
     for name, x, idx, misaligned in gather_cases():
         x, idx = gather_table(x, misaligned, "cuda"), torch.from_numpy(idx).cuda()
-        want = bits(torch, row_gather_plain(x, idx))
-        ok = all(torch.equal(bits(torch, row_gather(x, idx, design=d)), want) for d in DESIGNS)
+        ok = torch.equal(bits(torch, row_gather(x, idx)), bits(torch, row_gather_plain(x, idx)))
         cases.append({"kernel": "row_gather", "case": name, "shape": [*x.shape, idx.numel()],
                       "misaligned": misaligned, "equal": ok})
         bad += [] if ok else [f"row_gather {name}"]
-    cases += k3_large_table(torch)
-    bad += [f"row_gather {c['case']}" for c in cases[-2:] if not c["equal"]]
+    large = k3_large_table(torch)
+    cases += large
+    bad += [f"row_gather {c['case']} {c['shape']}" for c in large if not c["equal"]]
     p, ns = 50000, 2048
     pts = torch.zeros(1, p, 3, device="cuda")
     none = torch.zeros(1, p, dtype=torch.bool, device="cuda")

@@ -22,8 +22,9 @@
 //
 // What holds a gather back is the chain of two dependent loads a row (the
 // id, then the row it names), not the bytes: with one unit in flight a
-// thread (the first design, kept as design 1), the card runs out of loads in
-// flight before it runs out of bandwidth. The design (rows in flight):
+// thread (the first design, kept as the per-unit kernel), the card runs out
+// of loads in flight before it runs out of bandwidth. The design (rows in
+// flight):
 // - Copy unit: 16-byte vectors when Q is a multiple of 4 and both tables are
 //   16-byte aligned, else single words (the same kernel, another unit). A
 //   row is `vpr` units.
@@ -53,10 +54,8 @@
 //   faster there (a block's warps read one wide row's neighbouring units
 //   together).
 //
-// Designs 1-3 (the per-unit kernel; rows in flight at R = 1 and at R = 4)
-// can be asked for by number: the card tests hold each one against the
-// plain version, and the per-unit one is the yardstick the design is timed
-// against.
+// row_gather_per_unit_launch runs the per-unit kernel at every width: the
+// yardstick the design is timed against (tools/k3_sources.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,38 +163,36 @@ int launch_per_unit(const void* x, const void* idx, void* out, int64_t total, in
 }
 
 template <typename V>
-int launch(const void* x, const void* idx, void* out, int n, int vpr, int design,
+int launch(const void* x, const void* idx, void* out, int n, int vpr, bool per_unit,
            cudaStream_t s) {
-  if (design == 0) {
-    // rows wider than 64 units: the per-unit kernel, measured faster there
-    if (vpr > 2 * 32) design = 1;
-    // R = 4 where half the SMs or more still get a block (G = 1 always
-    // takes R = 1: a warp already covers 32 rows a slot)
-    const int g = vpr >= 32 ? 32 : vpr <= 1 ? 1 : 1 << (32 - __builtin_clz(vpr - 1));
-    const int64_t warps = ((int64_t)n * g + 31) / 32;  // at R = 1
-    if (design == 0) design = 2 * warps >= 4LL * kWarps * sm_count() ? 3 : 2;
-  }
-  if (design == 1) return launch_per_unit<V>(x, idx, out, (int64_t)n * vpr, vpr, s);
-  if (design == 2) return launch_width<V, 1>(x, idx, out, n, vpr, s);
-  return launch_width<V, 4>(x, idx, out, n, vpr, s);
+  // rows wider than 64 units: the per-unit kernel, measured faster there
+  if (per_unit || vpr > 2 * 32) return launch_per_unit<V>(x, idx, out, (int64_t)n * vpr, vpr, s);
+  // R = 4 where half the SMs or more still get a block (G = 1 always
+  // takes R = 1: a warp already covers 32 rows a slot)
+  const int g = vpr >= 32 ? 32 : vpr <= 1 ? 1 : 1 << (32 - __builtin_clz(vpr - 1));
+  const int64_t warps = ((int64_t)n * g + 31) / 32;  // at R = 1
+  if (2 * warps >= 4LL * kWarps * sm_count()) return launch_width<V, 4>(x, idx, out, n, vpr, s);
+  return launch_width<V, 1>(x, idx, out, n, vpr, s);
+}
+
+int gather(const void* x, const void* idx, void* out, int n, int q, bool per_unit,
+           cudaStream_t s) {
+  if (n < 1 || q < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = q % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  if (vec) return launch<uint4>(x, idx, out, n, q / 4, per_unit, s);
+  return launch<uint32_t>(x, idx, out, n, q, per_unit, s);
 }
 
 }  // namespace
 
 // x [P, q] f32, idx [n] i32 (each in [0, P)), out [n, q] f32, all contiguous.
-// design: 0 the choice above; 1 the per-unit kernel (one unit a thread);
-// 2 and 3 rows in flight with R = 1 and R = 4 (R = 1 where a row is one
-// unit).
-extern "C" int row_gather_launch_design(const void* x, const void* idx, void* out, int n, int q,
-                                        int design, void* stream) {
-  if (n < 1 || q < 1 || design < 0 || design > 3) return (int)cudaErrorInvalidValue;
-  const bool vec = q % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vec) return launch<uint4>(x, idx, out, n, q / 4, design, s);
-  return launch<uint32_t>(x, idx, out, n, q, design, s);
-}
-
 extern "C" int row_gather_launch(const void* x, const void* idx, void* out, int n, int q,
                                  void* stream) {
-  return row_gather_launch_design(x, idx, out, n, q, 0, stream);
+  return gather(x, idx, out, n, q, false, (cudaStream_t)stream);
+}
+
+// The same gather by the per-unit kernel (one unit a thread) at any width.
+extern "C" int row_gather_per_unit_launch(const void* x, const void* idx, void* out, int n,
+                                          int q, void* stream) {
+  return gather(x, idx, out, n, q, true, (cudaStream_t)stream);
 }

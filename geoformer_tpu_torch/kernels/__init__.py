@@ -141,8 +141,10 @@ def lib() -> ctypes.CDLL:
         so.fps_max_points.restype = i
         so.fps_cluster_size.argtypes = [i]
         so.fps_cluster_size.restype = i
-        so.row_gather_launch_design.argtypes = [p, p, p, i, i, i, p]
-        so.row_gather_launch_design.restype = i
+        so.row_gather_launch.argtypes = [p, p, p, i, i, p]
+        so.row_gather_launch.restype = i
+        so.row_gather_per_unit_launch.argtypes = [p, p, p, i, i, p]
+        so.row_gather_per_unit_launch.restype = i
         so.error_string.argtypes = [i]
         so.error_string.restype = ctypes.c_char_p
         _lib = so

@@ -219,16 +219,26 @@ def knn_cases(seed: int = 0) -> list[tuple[str, np.ndarray, np.ndarray, int]]:
     return cases
 
 
+# K3's width classes (csrc/row_gather.cu): as 16-byte units (q a multiple
+# of 4, aligned) rows of 1, 2, 4, 8, 16, 32 units (G lanes a row), 33-64
+# (two units a lane) and over 64 (the per-unit kernel); as words the same
+# classes at odd q and in misaligned views
+GATHER_WIDTHS = (1, 2, 3, 4, 7, 8, 13, 16, 27, 32, 50, 64, 128, 256, 1000)
+# ids enough that every class at or under 64 units takes R = 4 rows a
+# thread on a card of 132 SMs (n x G / 32 warps >= 2112); 777 ids take R = 1
+GATHER_MANY_IDS = 40000
+
+
 @functools.lru_cache(maxsize=2)
 def gather_cases(seed: int = 0) -> tuple[tuple[str, np.ndarray, np.ndarray, bool], ...]:
     """(name, x [P,q] f32, idx [n] i32, misaligned) for K3: every width class
-    of its design (q = 1, 3, 4, 7, 8, 16, 128, 256, 1000: one lane a row up to
-    a loop over 32-lane chunks, 16-byte units and words), each also as a
-    16-byte-misaligned table view (``gather_table``), which takes words; the
-    probe's and the foreground gather's shapes; more rows than one wave of
-    blocks covers at q = 128 (the grid-stride loop); n = 1, P = 1 and one id
-    repeated. Tables hold NaNs with a payload and -0.0; ids include 0 and
-    P - 1, repeated."""
+    of its design (``GATHER_WIDTHS``) by 777 ids, aligned and as a
+    16-byte-misaligned table view (``gather_table``, which takes words), and
+    by ``GATHER_MANY_IDS`` ids, so that each instantiation the kernel picks
+    runs on either side of its R threshold; the probe's and the foreground
+    gather's shapes; more rows than one wave of blocks covers at q = 128 (the
+    grid-stride loop); n = 1, P = 1 and one id repeated. Tables hold NaNs
+    with a payload and -0.0; ids include 0 and P - 1, repeated."""
     rng = np.random.default_rng(seed)
 
     def table(p, q):
@@ -243,9 +253,11 @@ def gather_cases(seed: int = 0) -> tuple[tuple[str, np.ndarray, np.ndarray, bool
         return i
 
     cases = []
-    for q in (1, 3, 4, 7, 8, 16, 128, 256, 1000):
+    for q in GATHER_WIDTHS:
         x, i = table(997, q), ids(997, 777)
         cases += [(f"q{q}", x, i, False), (f"q{q}_misaligned", x, i, True)]
+        if q <= 256:  # wider rows take the per-unit kernel at any count
+            cases.append((f"q{q}_n{GATHER_MANY_IDS}", x, ids(997, GATHER_MANY_IDS), False))
     cases += [("probe_512x128_n256", table(512, 128), ids(512, 256), False),
               ("fg_250000x16_n131072", table(250000, 16), ids(250000, 131072), False),
               ("grid_stride_q128_n60000", table(5000, 128), ids(5000, 60000), False),

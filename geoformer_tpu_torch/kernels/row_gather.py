@@ -13,29 +13,18 @@ import torch
 
 from geoformer_tpu_torch import kernels
 
-# the kernel's designs (csrc/row_gather.cu): "rows" picks from the row width
-# and count (rows in flight, R rows a thread; the per-unit kernel for rows
-# over 64 units); the others force one choice: one unit a thread, rows in
-# flight at R = 1 or R = 4. Callers take "rows"; the card tests hold every
-# design against the plain version, and chip_smoke.py times "per_unit"
-# beside "rows" as the parent's yardstick.
-DESIGNS = {"rows": 0, "per_unit": 1, "rows_r1": 2, "rows_r4": 3}
-
 
 def row_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [P,Q], idx [N] or [N,1] int (each in [0, P)) -> [N,Q]."""
     return x[idx.reshape(-1).long()]
 
 
-def row_gather(x: torch.Tensor, idx: torch.Tensor, design: str = "rows") -> torch.Tensor:
+def row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [P,Q] f32 contiguous, idx [N] or [N,1] int32, every id in [0, P) ->
     [N,Q] f32.
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise), in ``design`` (``DESIGNS``). Shapes and dtypes are checked on
-    the host; the ids are not read there (no synchronize), so in-range ids
-    are the caller's promise."""
-    if design not in DESIGNS:
-        raise ValueError(f"row_gather: unknown design {design!r}, not one of {list(DESIGNS)}")
+    raise). Shapes and dtypes are checked on the host; the ids are not read
+    there (no synchronize), so in-range ids are the caller's promise."""
     if row_gather.capture is not None:
         row_gather.capture.append((x.clone(), idx.clone()))
     if x.device.type == "cpu":
@@ -53,8 +42,8 @@ def row_gather(x: torch.Tensor, idx: torch.Tensor, design: str = "rows") -> torc
     out = torch.empty(n, q, dtype=torch.float32, device=x.device)
     if n == 0:
         return out  # nothing to launch
-    err = kernels.lib().row_gather_launch_design(
-        x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, q, DESIGNS[design],
+    err = kernels.lib().row_gather_launch(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, q,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "row_gather")
     row_gather.launches += 1

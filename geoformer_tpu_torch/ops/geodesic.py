@@ -229,19 +229,24 @@ def _fast_sweep_orders(ccoords, cmask, cnb, cw, c_cap, cblock, dist, n_steps, n_
     return dist, it
 
 
-def _fine_edges(nb, w, positions, point_mask, cell, block_size, fine_k=None):
-    """The fine sweep's edge table: the gated edges [P, K] cut to the nearest
-    fine_k slots, the points sorted along the spatial key at 2x the coarse
-    ``cell``, the edges remapped into that order and padded (``_pad_edges``)
-    -> (perm, inv, nb2 [PP, K2], w2 [PP, K2], PP)."""
-    p = nb.shape[0]
-    if fine_k is not None and fine_k < nb.shape[1]:
-        nb, w = nb[:, :fine_k], w[:, :fine_k]
+def _scene_edges(nbr_idx, nbr_dist, point_mask, radius, positions, cell_factor,
+                 block_size, fine_k=None):
+    """A scene's edge tables for the two-level solve: the kNN table gated to
+    live radius edges (``_prep_edges``: nb, w [P, K]) and the coarse cell
+    size; and the fine sweep's table: those edges cut to the nearest fine_k
+    slots, the points sorted along the spatial key at 2x the cell, the edges
+    remapped into that order and padded (``_pad_edges``) -> (nb, w, cell,
+    perm, inv, nb2 [PP, K2], w2 [PP, K2], PP)."""
+    p = nbr_idx.shape[0]
+    nb, w = _prep_edges(nbr_idx, nbr_dist, point_mask, radius)
+    cell = max(radius, 1e-4) * cell_factor
+    fnb, fw = (nb[:, :fine_k], w[:, :fine_k]) if fine_k is not None and fine_k < nb.shape[1] \
+        else (nb, w)
     perm = _spatial_order(positions, point_mask, cell * 2)
     inv = _invert_perm(perm)
-    nb_s = F.pad(inv, (0, 1), value=p)[nb[perm]]
-    nb2, w2, pp = _pad_edges(nb_s, w[perm], p, block_size)
-    return perm, inv, nb2, w2, pp
+    nb_s = F.pad(inv, (0, 1), value=p)[fnb[perm]]
+    nb2, w2, pp = _pad_edges(nb_s, fw[perm], p, block_size)
+    return nb, w, cell, perm, inv, nb2, w2, pp
 
 
 def _hier_scene(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, positions,
@@ -254,8 +259,9 @@ def _hier_scene(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, positio
     dev = positions.device
     if c_cap is None:
         c_cap = max(512, p // 8)
-    nb, w = _prep_edges(nbr_idx, nbr_dist, point_mask, radius)
-    cell = max(radius, 1e-4) * cell_factor
+    nb, w, cell, perm, inv, nb2, w2, pp = _scene_edges(
+        nbr_idx=nbr_idx, nbr_dist=nbr_dist, point_mask=point_mask, radius=radius,
+        positions=positions, cell_factor=cell_factor, block_size=block_size, fine_k=fine_k)
     p2c, rep, rep_pos, to_rep, cnb, cw, cmask, ccoords = _coarse_contract(
         positions, point_mask, nb, w, cell, c_cap, kc, min(k_sub, k))
 
@@ -274,8 +280,6 @@ def _hier_scene(nbr_idx, nbr_dist, seeds, seed_mask, point_mask, radius, positio
         n_live=int(cmask.sum()), eps=coarse_eps)
 
     # prolong + fixed fine smoothing sweeps over the nearest fine_k slots
-    perm, inv, nb2, w2, pp = _fine_edges(nb, w, positions, point_mask, cell, block_size, fine_k)
-
     cdist_pad = F.pad(cdist[:c_cap], (0, 0, 0, 1), value=INF)
     p2c_sorted = p2c[perm].clamp(max=c_cap)
     d0 = cdist_pad[p2c_sorted] + to_rep[perm][:, None]

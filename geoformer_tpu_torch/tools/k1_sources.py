@@ -30,6 +30,7 @@ import torch
 
 from geoformer_tpu_torch import kernels
 from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand_plain
+from geoformer_tpu_torch.tools.profiling import time_ms
 
 
 def compile_source(name: str, src: str):
@@ -68,18 +69,6 @@ def launcher(lib):
             raise RuntimeError(f"knn_select_launch failed with error {err}")
         return vals, idx
     return select
-
-
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def tables(n: int = 131072, w: int = 648, seed: int = 0) -> dict:

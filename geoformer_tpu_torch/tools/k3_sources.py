@@ -1,5 +1,5 @@
-"""K3 (csrc/row_gather.cu) built from several sources, and in each of its
-designs, timed on the same gathers in one process on the card.
+"""K3 (csrc/row_gather.cu) built from several sources timed on the same
+gathers in one process on the card, beside the tree's own kernel.
 
     python3 -m geoformer_tpu_torch.tools.k3_sources \\
         --source parent=build/parent_row_gather.cu \\
@@ -7,19 +7,20 @@ designs, timed on the same gathers in one process on the card.
 
 Each ``--source`` is compiled alone with the port's nvcc flags into build/
 and launched through its C entry point (``row_gather_launch``); the tree's
-own kernel runs through ``kernels/row_gather.py`` in each design
-(``DESIGNS``: rows, per_unit, rows_r1, rows_r4). The ptxas report of each
-source is printed. The gathers: the TPU probe's ([512,128] by 256), the
-eval forward's foreground gather ([250000,16] by 131,072 ids of one
-synthetic scene), one block's slab of the geodesic fine sweep (4,096 ids,
-spatially sorted neighbours, into [131073, Q] at the training config's
-Q = 128 and at the eval's 256; ``sweep_slab``), and each width class of
-the design at [250000, q] by 131,072 random ids. On each, every source and
-design is held bit-equal to the plain version, then timed by
-torch.profiler's device time (``device_ms``) with the L2 flushed by a
-write (``ms``) and by a read (``l2_clean``) before every call and warm
-(``l2_warm``), in the ``--order`` given, beside the plain version and
-``torch.index_select``. One JSON line a gather.
+own kernel runs through ``kernels/row_gather.py`` (``rows``) and through
+its per-unit entry point (``per_unit``: one unit a thread at any width).
+The ptxas report of each source is printed. The gathers: the TPU probe's
+([512,128] by 256), the eval forward's foreground gather ([250000,16] by
+131,072 ids of one synthetic scene), one block's slab of the geodesic fine
+sweep (4,096 ids, spatially sorted neighbours, into [131073, Q] at the
+training config's Q = 128 and at the eval's 256; ``sweep_slab``), and each
+width class of the design at [250000, q] by 131,072 random ids. On each,
+every source and the tree's kernel is held bit-equal to the plain version,
+then timed by torch.profiler's device time (``tools/profiling.py``
+``device_ms``) with the L2 flushed by a write (``ms``) and by a read
+(``l2_clean``) before every call and warm (``l2_warm``), in the
+``--order`` given, beside the plain version and ``torch.index_select``.
+One JSON line a gather.
 """
 
 from __future__ import annotations
@@ -32,77 +33,14 @@ import subprocess
 
 import torch
 
-from geoformer_tpu_torch.kernels.row_gather import DESIGNS, row_gather, row_gather_plain
+from geoformer_tpu_torch import kernels
+from geoformer_tpu_torch.kernels.row_gather import row_gather, row_gather_plain
 from geoformer_tpu_torch.tools.k1_sources import compile_source
+from geoformer_tpu_torch.tools.profiling import compare
 
-# the fine sweep's rows a block and edge slots a slab (ops/geodesic.py)
-SWEEP_BLOCK = 512
+# edge slots a slab of the fine sweep (ops/geodesic.py _block_sweeps)
 SWEEP_SLAB = 8
 WIDTHS = (1, 3, 4, 7, 8, 16, 128, 256, 1000)
-
-
-def device_ms(fn, reps: int, flush=None, only=None, flush_by: str = "write") -> float:
-    """Device time of one fn() from torch.profiler: for each CUDA kernel or
-    copy that fn enqueues (or those whose name holds ``only``), the median
-    of its launches' durations times its launches a call (its count over
-    ``reps``, rounded), summed over the kernels. The median and the
-    rounding, because a capture may record a launch with a wrong duration
-    (means off by 2x) or miss some (K2's cluster launch: 9 of 10 in every
-    capture; late in a long run, 46 of 50 of K3's and of the flush's). For
-    kernels of a few microseconds, where a loop between two
-    CUDA events runs at the host's launch pace and not at the device's.
-    With ``flush`` (a buffer several times the L2's size) every call finds
-    the L2 cold: the buffer is filled (``flush_by`` "write", which leaves
-    the L2 full of dirty lines that fn's traffic then writes back) or
-    summed ("read": clean lines) before it, and the flush kernels are left
-    out."""
-    from statistics import median
-
-    from torch.profiler import ProfilerActivity, profile
-
-    skip = None if flush is None else "FillFunctor" if flush_by == "write" else "reduce_kernel"
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush.fill_(0.0) if flush_by == "write" else flush.sum()
-                fn()
-            torch.cuda.synchronize()
-        cuda = torch.autograd.DeviceType.CUDA
-        durations, flushes = {}, 0
-        for e in prof.events():
-            if e.device_type != cuda:
-                continue
-            if skip is not None and skip in e.name:
-                flushes += 1
-            elif only is None or only in e.name:
-                durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        if durations and (flush is None or flushes):
-            return sum(median(d) * max(1, round(len(d) / reps))
-                       for d in durations.values()) / 1e3
-    raise RuntimeError(f"torch.profiler recorded no {only or 'device'} launch or no flush in "
-                       f"five captures ({ {k: len(d) for k, d in durations.items()} }, "
-                       f"{flushes} flushes)")
-
-
-def l2_flush(device) -> torch.Tensor:
-    """A 256 MB buffer: filling it before a call evicts the 50 MB L2."""
-    return torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
-
-
-def compare(fns: dict, order: list, reps: int = 50) -> dict:
-    """{label: {"ms": [...], "l2_clean": [...], "l2_warm": [...]}}: each
-    fn's device time with the L2 flushed by a write and by a read (clean
-    lines) and warm, one reading of each a turn, in ``order``."""
-    flush = l2_flush("cuda")
-    res = {label: {"ms": [], "l2_clean": [], "l2_warm": []} for label in fns}
-    for label in order:
-        res[label]["ms"].append(device_ms(fns[label], reps, flush=flush))
-        res[label]["l2_clean"].append(device_ms(fns[label], reps, flush=flush, flush_by="read"))
-        res[label]["l2_warm"].append(device_ms(fns[label], reps))
-    return res
 
 
 def fg_gather_inputs(engine, batch):
@@ -118,30 +56,28 @@ def fg_gather_inputs(engine, batch):
 def sweep_slab(engine, batch, q: int, slab: int = 0, seed: int = 0):
     """One block's slab of the geodesic fine sweep's gather
     ``dist[nb2[rows, cols]]`` (ops/geodesic.py ``_block_sweeps``) on scene
-    0's radius-kNN table, taken from one eval forward: the middle block of
-    the live rows, edge slots [8 * slab, 8 * slab + 8), as int32 ids in the
-    sweep's order (512 rows x 8 slots), and a seeded [PP + 1, q] f32 table."""
-    from geoformer_tpu_torch.models import geoformer
-    from geoformer_tpu_torch.ops.geodesic import _fine_edges, _prep_edges
+    0's radius-kNN table, from the edge table that one eval forward's solve
+    builds (``_scene_edges``, recorded): the middle block of the live rows,
+    edge slots [8 * slab, 8 * slab + 8), as int32 ids in the sweep's order
+    (block_size rows x 8 slots), and a seeded [PP + 1, q] f32 table."""
+    from geoformer_tpu_torch.ops import geodesic
 
     calls = []
-    hier = geoformer.geodesic_distance_hier
+    edges = geodesic._scene_edges
 
-    def keep(*a, **kw):
-        calls.append((a, kw))
-        return hier(*a, **kw)
+    def keep(**kw):
+        calls.append((kw, edges(**kw)))
+        return calls[-1][1]
 
-    geoformer.geodesic_distance_hier = keep
+    geodesic._scene_edges = keep
     try:
         engine.eval_batch(batch)
     finally:
-        geoformer.geodesic_distance_hier = hier
-    (nbr_i, nbr_d, _, _, valid, radius, _, locs), kw = calls[0]
-    nb, w = _prep_edges(nbr_i[0], nbr_d[0], valid[0], radius)
-    cell = max(radius, 1e-4) * kw["cell_factor"]
-    _, _, nb2, _, pp = _fine_edges(nb, w, locs[0], valid[0], cell, SWEEP_BLOCK, kw["fine_k"])
-    block = int(valid[0].sum()) // SWEEP_BLOCK // 2
-    ids = nb2[block * SWEEP_BLOCK:(block + 1) * SWEEP_BLOCK, slab * SWEEP_SLAB:(slab + 1) * SWEEP_SLAB]
+        geodesic._scene_edges = edges
+    kw, (_, _, _, _, _, nb2, _, pp) = calls[0]
+    rows = kw["block_size"]
+    block = int(kw["point_mask"].sum()) // rows // 2
+    ids = nb2[block * rows:(block + 1) * rows, slab * SWEEP_SLAB:(slab + 1) * SWEEP_SLAB]
     gen = torch.Generator(device=nb2.device).manual_seed(seed)
     dist = torch.randn(pp + 1, q, generator=gen, device=nb2.device)
     return dist, ids.reshape(-1).to(torch.int32).contiguous()
@@ -166,17 +102,24 @@ def gather_bytes(x, idx) -> dict:
             "bytes_all_ids": n * (2 * q * 4 + 4)}
 
 
-def launcher(lib):
-    """The source's gather through its C entry point row_gather_launch."""
+def launcher(entry):
+    """The gather through a C entry point of row_gather_launch's signature
+    (x, idx, out, n, q, stream); no launch is counted."""
     def gather(x, idx):
         idx = idx.reshape(-1)
         out = torch.empty(idx.numel(), x.shape[1], dtype=torch.float32, device=x.device)
-        err = lib.row_gather_launch(x.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(),
-                                    x.shape[1], torch.cuda.current_stream().cuda_stream)
+        err = entry(x.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), x.shape[1],
+                    torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"row_gather_launch failed with error {err}")
+            raise RuntimeError(f"row gather entry point failed with error {err}")
         return out
     return gather
+
+
+def per_unit(x, idx):
+    """The tree's K3 by its per-unit kernel (one unit a thread, the first
+    design) at any width: the yardstick the design is timed against."""
+    return launcher(kernels.lib().row_gather_per_unit_launch)(x, idx)
 
 
 def gathers(seed: int = 0) -> dict:
@@ -210,7 +153,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", action="append", default=[],
                     help="LABEL=PATH of a row_gather.cu (entry point row_gather_launch)")
-    ap.add_argument("--order", help="labels (sources and designs) in timing order, "
+    ap.add_argument("--order", help="labels (sources, rows, per_unit) in timing order, "
                     "comma-separated (default: each, then the reverse)")
     ap.add_argument("--only", help="gathers to time, comma-separated (default: all)")
     args = ap.parse_args(argv)
@@ -225,10 +168,9 @@ def main(argv=None) -> int:
         lib, report = compile_source(f"k3_{label}", src)
         lib.row_gather_launch.argtypes = [p, p, p, i, i, p]
         lib.row_gather_launch.restype = i
-        fns[label] = launcher(lib)
+        fns[label] = launcher(lib.row_gather_launch)
         print(json.dumps({"source": label, "path": src, "ptxas": report}), flush=True)
-    for design in DESIGNS:
-        fns[design] = lambda x, idx, design=design: row_gather(x, idx, design=design)
+    fns["rows"], fns["per_unit"] = row_gather, per_unit
     order = args.order.split(",") if args.order else [*fns, *reversed(fns)]
     for name, (x, idx) in gathers().items():
         if args.only and name not in args.only.split(","):

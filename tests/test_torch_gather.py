@@ -5,20 +5,21 @@ exactly against the TPU probe's own inputs and answer: the four Pallas probe
 kernels of tools/pallas_gather_probe.py in interpret mode and ``jnp.take``,
 and against numpy's ``x[idx]`` on the corner cases of the kernel's design
 (``kernels/edge_cases.py:gather_cases``). A gather moves bits, so every
-comparison is exact (no tolerance). The CUDA kernel, in each of its designs,
-is held against the plain version on the card on those cases (marker
-``cuda``).
+comparison is exact (no tolerance). The CUDA kernel is held against the
+plain version on the card on those cases (marker ``cuda``). JAX is
+imported inside the CPU tests, so that the card tests also run where JAX is
+not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_gather.py
 """
 
 import numpy as np
 import pytest
 import torch
-import jax.numpy as jnp
 
 from geoformer_tpu_torch.kernels.edge_cases import gather_cases, gather_table
-from geoformer_tpu_torch.kernels.row_gather import DESIGNS, row_gather, row_gather_plain
+from geoformer_tpu_torch.kernels.row_gather import row_gather, row_gather_plain
 from geoformer_tpu_torch.tools import gather_probe
-from tools import pallas_gather_probe
 
 
 def _bits(a):
@@ -29,6 +30,10 @@ def test_probe_inputs_are_the_tpu_probes_and_plain_matches_take():
     """Same seed-0 inputs as the TPU probe; all four Pallas forms answer OK
     on them (interpret mode), and the plain version equals jnp.take bit for
     bit, with [N,1] and with [N] ids."""
+    import jax.numpy as jnp
+
+    from tools import pallas_gather_probe
+
     x, idx = gather_probe.probe_inputs()
     assert x.shape == (512, 128) and idx.shape == (256, 1) and idx.dtype == np.int32
     rng = np.random.default_rng(0)  # pallas_gather_probe.run_probe's draws
@@ -45,43 +50,34 @@ def test_probe_inputs_are_the_tpu_probes_and_plain_matches_take():
         np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("p,q,n", [(50, 7, 33), (9, 1, 40), (64, 12, 5), (17, 130, 17)])
-def test_plain_moves_bits_at_any_width(p, q, n):
-    """Widths that are no multiple of 4, repeated ids, NaN payloads and -0.0:
-    the rows come out bit for bit."""
+@pytest.mark.parametrize("p,q,n,misaligned", [
+    pytest.param(50, 7, 33, False, id="50-7-33"),
+    pytest.param(9, 1, 40, False, id="9-1-40"),
+    pytest.param(64, 12, 5, False, id="64-12-5"),
+    pytest.param(17, 130, 17, False, id="17-130-17"),
+    pytest.param(40, 16, 60, True, id="40-16-60-misaligned"),
+    pytest.param(1, 3, 1, True, id="1-3-1-misaligned"),
+])
+def test_plain_moves_bits_at_any_width(p, q, n, misaligned):
+    """Widths that are no multiple of 4, repeated ids, NaN payloads and -0.0,
+    tables that start off a 16-byte boundary (``gather_table``): the rows
+    come out bit for bit."""
+    import jax.numpy as jnp
+
     rng = np.random.default_rng(p * 1000 + q)
     x = rng.normal(size=(p, q)).astype(np.float32)
     x.reshape(-1).view(np.uint32)[::3] |= 0x7FC00123  # NaNs with a payload
-    x[1] = -0.0
+    x[p // 2] = -0.0
     idx = rng.integers(0, p, size=(n,)).astype(np.int32)
-    got = row_gather_plain(torch.from_numpy(x), torch.from_numpy(idx)).numpy()
+    t = gather_table(x, misaligned, "cpu")
+    assert (t.data_ptr() % 16 != 0) == misaligned
+    got = row_gather_plain(t, torch.from_numpy(idx)).numpy()
     np.testing.assert_array_equal(_bits(got), _bits(x[idx]))
     want = np.asarray(jnp.take(jnp.asarray(x), jnp.asarray(idx), axis=0))
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 CASES = {name: (x, idx, misaligned) for name, x, idx, misaligned in gather_cases()}
-
-
-@pytest.mark.parametrize("case", list(CASES))
-def test_plain_on_the_kernels_corner_cases(case):
-    """The plain version, and the wrapper on the CPU in every design, equal
-    numpy's ``x[idx]`` bit for bit on each corner case, the misaligned
-    table views included."""
-    x, idx, misaligned = CASES[case]
-    t = gather_table(x, misaligned, "cpu")
-    assert t.is_contiguous() and (t.data_ptr() % 16 != 0) == misaligned
-    want = _bits(x[idx])
-    np.testing.assert_array_equal(_bits(row_gather_plain(t, torch.from_numpy(idx)).numpy()), want)
-    for design in DESIGNS:
-        got = row_gather(t, torch.from_numpy(idx), design=design).numpy()
-        np.testing.assert_array_equal(_bits(got), want)
-
-
-def test_unknown_design_raises():
-    x, idx, _ = CASES["q16"]
-    with pytest.raises(ValueError, match="unknown design"):
-        row_gather(torch.from_numpy(x), torch.from_numpy(idx), design="tma")
 
 
 def test_run_probe_on_cpu_and_without_a_card():
@@ -102,19 +98,29 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_matches_plain_on_card(cuda, case):
-    """Every design of the kernel bit-equal to the plain version on each
-    corner case (width classes, misaligned views, n = 1, P = 1, ids 0 and
-    P - 1, repeated ids, NaN payloads), one launch counted a call."""
+    """The kernel bit-equal to the plain version on each corner case (every
+    width class on either side of the rows-a-thread threshold, misaligned
+    views, n = 1, P = 1, ids 0 and P - 1, repeated ids, NaN payloads), one
+    launch counted a call."""
     x, idx, misaligned = CASES[case]
     x, idx = gather_table(x, misaligned, cuda), torch.from_numpy(idx).to(cuda)
     want = row_gather_plain(x, idx).view(torch.int32)
-    for design in DESIGNS:
-        before = row_gather.launches
-        out = row_gather(x, idx, design=design)
-        torch.cuda.synchronize()
-        assert row_gather.launches == before + 1
-        assert torch.equal(out.view(torch.int32), want), design
+    before = row_gather.launches
+    out = row_gather(x, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert torch.equal(out.view(torch.int32), want)
+
+
+@pytest.mark.cuda
+def test_kernel_on_card_refuses_what_it_cannot_take(cuda):
+    """The probe answers OK on the card; a strided table (which would need a
+    hidden copy), a float64 table and int64 ids raise, and launch nothing."""
     assert gather_probe.run_probe() == {"row_gather": "OK", "plain": "OK"}
-    q = x.shape[1]
-    with pytest.raises(ValueError):  # a strided table would need a hidden copy
-        row_gather(torch.cat([x, x], dim=1)[:, :q], idx)
+    x = torch.randn(4, 16, device=cuda)
+    idx = torch.tensor([3, 0], dtype=torch.int32, device=cuda)
+    before = row_gather.launches
+    for bad_x, bad_idx in ((x[:, :8], idx), (x.double(), idx), (x, idx.long())):
+        with pytest.raises(ValueError):
+            row_gather(bad_x, bad_idx)
+    assert row_gather.launches == before

@@ -135,7 +135,22 @@ directory that lacks the port's package. It
    process at B = 2 and at B = 1, scene 0 compared stage by stage: integer
    stages equal, float stages within the bound that the B = 1 / B = 2
    distance sets, see MP_EVAL_RATIO);
-14. prints a ``kernels`` line with each kernel's launches on its paths (K2's
+14. the throughput entry points, each run as a subprocess as a user runs
+   it: ``bench_eval`` runs cli.bench (bench.py's scene_inference line) at
+   the ``prod`` and the ``full`` scale, B = 1, and fails unless the rate is
+   above 0, no hard capacity counter is above 0 (the soft window counter is
+   printed), the foreground is not empty, the line names the card and its
+   power limit, and K1's and K2's launches over the run are 9 x those of
+   its first forward; then one forward at ``full`` outside the counted
+   runs holds K1 and K2 against their plain versions at any shape that no
+   phase above held (K1's [32768, 648] table), on ``kernel`` lines;
+15. ``train_bench``: tools/train_bench.py's counterpart at its defaults
+   (B = 1, full phase, 250,000 points, bf16 and remat), with ``--prepare``
+   and with ``--fs``, two timed steps each, then ``--mesh 2`` (1 x 2
+   gloo ranks on the one card) for one: each must print a finite loss and
+   p50 step, scenes/s and peak memory beside the card's name and power
+   limit, and each full-phase run must launch K1 and K2 on every rank;
+16. prints a ``kernels`` line with each kernel's launches on its paths (K2's
    by shape: every counted run logs the shape of each K2 call, and a row's
    ``launches`` are those made at its shape; K2's row at two scenes,
    [2, 50000] x 2,048, counts the data- and model-parallel ranks'
@@ -154,6 +169,8 @@ import functools
 import json
 import math
 import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -2836,6 +2853,162 @@ def mp_eval(torch, here, smoke) -> dict:
     return {"res": res, "rank_launches": [g["launches"] for g in got]}
 
 
+# ---------------- the throughput entry points ----------------
+
+# cli.bench's scales (bench.py's SCALES) and forwards a run (the first and
+# 8 timed); train_bench's runs: the defaults (B = 1, full phase, 250,000
+# points), --prepare, --fs, and 1 x 2 mesh ranks on the one card. Two timed
+# steps a run (three took the phases to 148 s on an H100, of which each
+# run's start and first step, ~20 s, are fixed)
+BENCH_RUN_SCALES = ("prod", "full")
+BENCH_FORWARDS = 9
+TRAIN_BENCH_RUNS = (("train_bench", ["--steps", "2"]),
+                    ("train_bench_prepare", ["--prepare", "--steps", "2"]),
+                    ("train_bench_fs", ["--fs", "--steps", "2"]),
+                    ("train_bench_mesh", ["--mesh", "2", "--steps", "1"]))
+TOOL_TIMEOUT_S = 600
+
+
+def run_tool(here, module: str, argv: list) -> tuple:
+    """``python3 -m module *argv`` from the repository root, in a session of
+    its own (a timeout stops it and every rank it started) -> (its last
+    stdout line as JSON, the ``launches`` objects among its stdout and
+    stderr lines, a ``rank<r>: `` prefix taken off, seconds). A non-zero
+    exit fails the run."""
+    t = time.time()
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=here,
+                            env=dict(os.environ, PYTHONPATH=here), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TOOL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{module} {argv} outlived {TOOL_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"{module} {argv} exited {proc.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+    launches = []
+    for line in out.splitlines() + err.splitlines():
+        body = re.sub(r"^rank\d+: ", "", line)
+        if body.startswith("{") and '"launches"' in body:
+            launches.append(json.loads(body))
+    return json.loads(out.strip().splitlines()[-1]), launches, time.time() - t
+
+
+def check_card_keys(torch, name: str, line: dict) -> None:
+    if line["device"] != torch.cuda.get_device_name(0) or not line["power_limit_w"]:
+        fail(f"{name}: device {line['device']!r}, power limit {line['power_limit_w']!r}")
+
+
+def bench_eval(torch, here) -> dict:
+    """cli.bench at each of BENCH_RUN_SCALES, B = 1, as a subprocess: a rate
+    above 0, no hard capacity counter above 0 (the soft window counter is
+    printed), a foreground, the card's name and power limit, and K1's and
+    K2's launches over the run BENCH_FORWARDS x those of its first forward
+    -> {scale: the run's launches}."""
+    from geoformer_tpu_torch.cli.bench import SOFT_COUNTER
+
+    by_scale = {}
+    for scale in BENCH_RUN_SCALES:
+        line, counts, seconds = run_tool(here, "geoformer_tpu_torch.cli.bench",
+                                         ["--scale", scale])
+        emit({"phase": "bench_eval", "scale": scale, "seconds": seconds, "result": line,
+              "launch_lines": counts})
+        hard = {k: v for k, v in line["degradation_counters"].items() if k != SOFT_COUNTER}
+        if not (line["metric"] == "scene_inference" and line["scale"] == scale
+                and line["batch_size"] == 1 and line["value"] > 0):
+            fail(f"bench {scale}: {line}")
+        if line["dropped_points"] != 0 or any(hard.values()):
+            fail(f"bench {scale}: points dropped {line['degradation_counters']}")
+        if line["fg_points"] <= 0:
+            fail(f"bench {scale}: no foreground point")
+        check_card_keys(torch, f"bench {scale}", line)
+        if len(counts) != 1 or counts[0]["forwards"] != BENCH_FORWARDS:
+            fail(f"bench {scale}: launch lines {counts}")
+        total, first = counts[0]["launches"], counts[0]["first_call_launches"]
+        for name in ("knn_select", "fps"):
+            if first[name] <= 0 or total[name] != BENCH_FORWARDS * first[name]:
+                fail(f"bench {scale}: {name} launched {total[name]} times in "
+                     f"{BENCH_FORWARDS} forwards, {first[name]} in the first")
+        by_scale[scale] = total
+    return by_scale
+
+
+def bench_full_kernels(torch, Engine, synthetic_batch, held: dict, launches: dict) -> list:
+    """One eval forward at cli.bench's ``full`` scale (its config, weights,
+    batch and generator), outside the counted runs, capturing K1's and K2's
+    inputs; each shape that no earlier phase held gets a ``kernel`` line
+    (K1 or K2 against its plain version, timed), with the launches the
+    ``full`` run made -> those rows. ``held``: {kernel name: shapes held}."""
+    from geoformer_tpu_torch.cli.bench import bench_config
+    from geoformer_tpu_torch.kernels.fps import fps, fps_plain
+    from geoformer_tpu_torch.kernels.knn_select import (
+        select_min_k_cand,
+        select_min_k_cand_plain,
+    )
+
+    cfg = bench_config("full")
+    engine = Engine(cfg, seed=0)
+    batch = engine.to_device(synthetic_batch(cfg, 1, seed=0))
+    logs = select_min_k_cand.capture, fps.capture = CallLog(keep=True), CallLog(keep=True)
+    try:
+        with torch.no_grad():
+            engine.model(batch, train=False,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    finally:
+        select_min_k_cand.capture = fps.capture = None
+    del engine, batch
+    rows = []
+    for key, (d2, cand, k) in logs[0].first.items():
+        if list(key) in held["knn_select"]:
+            continue
+        n, w = d2.shape
+        rows.append(kernel_row(
+            torch, name="knn_select", source="geoformer_tpu_torch/csrc/knn_select.cu",
+            replaces="geoformer_tpu/ops/knn_select_pallas.py:34",
+            launches=launches["knn_select"],
+            kernel=lambda: select_min_k_cand(d2, cand, k),
+            plain=lambda: select_min_k_cand_plain(d2, cand, k),
+            library=lambda: torch.topk(d2, k, dim=1, largest=False),
+            bytes_=n * w * 4 + n * k * 4 + n * k * 8, ops=n * w * k, shape=[n, w, k],
+            reps=20, plain_reps=3, path="bench_full",
+            exact_share=exact_share(torch, select_min_k_cand, d2, cand, k)))
+    for key, inputs in logs[1].first.items():
+        if list(key) not in held["fps"]:
+            rows.append(dict(fps_row(torch, fps, fps_plain, inputs, launches["fps"]),
+                             path="bench_full"))
+    logs[0].first.clear()
+    logs[1].first.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_bench(torch, here) -> dict:
+    """tools/train_bench.py's counterpart as a subprocess, each run of
+    TRAIN_BENCH_RUNS: a finite loss and p50 step, scenes/s, peak memory, the
+    card's name and power limit, and in every full-phase run K1 and K2
+    launched on every rank -> {path: launches} (the mesh run's a rank)."""
+    by_path = {}
+    for name, argv in TRAIN_BENCH_RUNS:
+        line, counts, seconds = run_tool(here, "geoformer_tpu_torch.tools.train_bench", argv)
+        emit({"phase": "train_bench", "run": name, "argv": argv, "seconds": seconds,
+              "result": line, "launch_lines": counts})
+        if not (line["metric"] == "train_step" and math.isfinite(line["loss"])
+                and math.isfinite(line["p50_step_s"]) and line["p50_step_s"] > 0
+                and line["scenes_per_sec"] > 0 and line["max_memory_allocated_bytes"]):
+            fail(f"train_bench {name}: {line}")
+        check_card_keys(torch, f"train_bench {name}", line)
+        ranks = 2 if "--mesh" in argv else 1
+        if sorted(c["rank"] for c in counts) != list(range(ranks)):
+            fail(f"train_bench {name}: launch lines {counts}")
+        for c in counts:
+            if line["phase"] != "prepare" and min(c["launches"]["knn_select"],
+                                                  c["launches"]["fps"]) <= 0:
+                fail(f"train_bench {name}: rank {c['rank']} launched {c['launches']}")
+            by_path[name if ranks == 1 else f"{name}_rank{c['rank']}"] = c["launches"]
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenes", type=int, default=2, help="full-size scenes to run (>= 2)")
@@ -3092,6 +3265,20 @@ def main(argv=None) -> int:
     # dependent picks, timed with no distance to update
     k2_row["chain_floor"] = edges["fps_chain"]
     k3_row["other_shapes"] = [k3_large, k3_sweep]
+    # the throughput entry points (cli.bench, tools.train_bench), each run as
+    # a user runs it; then K1 and K2 at any shape the bench's full scale
+    # gives them that no phase above held
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    benched = bench_eval(torch, here)
+    for scale, got in benched.items():
+        by_path[f"bench_{scale}"] = got
+    held = {"knn_select": [k1_shape] + [r["shape"] for r in k1_row["other_shapes"]],
+            "fps": [k2_row["shape"]] + [r["shape"] for r in k2_row["other_shapes"]]}
+    for row in bench_full_kernels(torch, Engine, synthetic_batch, held, benched["full"]):
+        {"knn_select": k1_row, "fps": k2_row}[row["name"]]["other_shapes"].append(row)
+    by_path.update(train_bench(torch, here))
+    emit({"phase": "throughput_tools_done", "seconds": time.time() - t0})
     rows = [k1_row, k2_row, k3_row]
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()

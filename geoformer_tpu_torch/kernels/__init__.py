@@ -118,6 +118,25 @@ def _build(out: str) -> None:
     build_seconds = time.time() - t0
 
 
+def wrappers() -> dict:
+    """Each kernel's wrapper by name; ``wrapper.launches`` counts the
+    kernel's launches (a plain attribute, set to 0 to start a count)."""
+    from geoformer_tpu_torch.kernels.fps import fps
+    from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand
+    from geoformer_tpu_torch.kernels.row_gather import row_gather
+
+    return {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
 def build_log() -> str:
     """What nvcc and ptxas printed when the current library was built."""
     path = library_path() + ".log"

@@ -7,9 +7,13 @@ work that keeps the device busy longer than the host takes to launch it;
 ``device_ms`` reads torch.profiler's device time of each launch, for
 kernels of a few microseconds, optionally with the L2 flushed before every
 call (``l2_flush``); ``compare`` times several functions in turns with it.
+``card`` names the device a measurement ran on, with the card's power
+limit, for the throughput tools' result lines.
 """
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -90,3 +94,25 @@ def compare(fns: dict, order: list, reps: int = 50) -> dict:
         res[label]["l2_clean"].append(device_ms(fns[label], reps, flush=flush, flush_by="read"))
         res[label]["l2_warm"].append(device_ms(fns[label], reps))
     return res
+
+
+def card(device) -> dict:
+    """{"device": the card's name, "power_limit_w": its power limit in W}:
+    ``torch.cuda.get_device_name`` and the limit from ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` (None where
+    nvidia-smi cannot say); {"device": "cpu", "power_limit_w": None} for a
+    CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"device": str(device), "power_limit_w": None}
+    index = torch.cuda.current_device() if device.index is None else device.index
+    limit = None
+    try:
+        out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        if out.returncode == 0:  # "NVIDIA H100 80GB HBM3, 700.00 W"
+            limit = float(out.stdout.strip().rsplit(",", 1)[-1].split()[0])
+    except (OSError, ValueError, IndexError, subprocess.TimeoutExpired):
+        pass
+    return {"device": torch.cuda.get_device_name(index), "power_limit_w": limit}

@@ -69,7 +69,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "geoformer_tpu_torch.ops.interpolate", "geoformer_tpu_torch.ops.segment_ops",
                 "geoformer_tpu_torch.ops.cluster", "geoformer_tpu_torch.native",
                 "geoformer_tpu_torch.utils.visualize",
-                "geoformer_tpu_torch.tools.convert_reference_checkpoint"}
+                "geoformer_tpu_torch.tools.convert_reference_checkpoint",
+                "geoformer_tpu_torch.cli.bench", "geoformer_tpu_torch.tools.train_bench"}
     assert expected <= set(res["modules"])
 
 

@@ -282,6 +282,19 @@ def test_engine_eval_batch_cpu(setup):
         np.testing.assert_array_equal(out["nms"]["keep"][b].numpy(), np.asarray(wk))
 
 
+def test_bench_reduction(setup):
+    """cli.bench's read of a forward (bench_scalar, counters) on the port's
+    outputs against bench.py's reduction (bench.py:141-149) of the JAX
+    outputs: counters exact, the scalar within 1e-4 relative."""
+    from geoformer_tpu_torch.cli.bench import COUNTERS, bench_scalar, counters
+
+    jout = setup["jout"]
+    want = float(jnp.sum(jout["proposals"]["scores"]) + jnp.sum(jout["semantic_scores"][:, :64]))
+    assert counters(setup["tout"]).tolist() == [int(jnp.sum(jout["voxel_stats"][k]))
+                                                for k in COUNTERS]
+    np.testing.assert_allclose(float(bench_scalar(setup["tout"])), want, rtol=1e-4, atol=0)
+
+
 def test_engine_without_device_needs_cuda(tiny_cfg):
     """With no device the Engine runs on the card; without one it raises."""
     if torch.cuda.is_available():

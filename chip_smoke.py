@@ -18,7 +18,11 @@ directory that lacks the port's package. It
    rows-a-thread threshold, misaligned views and a table of more than 2^31
    words, as 16-byte units, words and by the per-unit kernel) and times K2's
    chain of dependent picks on an all-invalid scene, where no distance is
-   updated;
+   updated; and holds K4 (the submanifold conv: forward, input gradient,
+   weight gradient) within ``subm_check``'s bounds of its plain versions on
+   ``SUBM_CASES`` in float32 and bf16, each run twice bit-equal, then times
+   it at the training cell's level-0 and level-6 shapes (bf16; ``kernel``
+   lines, their launches from the ``train_bench_prepare`` run);
 4. drives the main path, Engine.eval_batch (the supervised eval forward +
    matrix NMS), over N >= 2 synthetic 250,000-point scenes at the
    config/test_geoformer_scannet.yaml settings with seeded random weights,
@@ -149,7 +153,8 @@ directory that lacks the port's package. It
    and with ``--fs``, two timed steps each, then ``--mesh 2`` (1 x 2
    gloo ranks on the one card) for one: each must print a finite loss and
    p50 step, scenes/s and peak memory beside the card's name and power
-   limit, and each full-phase run must launch K1 and K2 on every rank;
+   limit, each full-phase run must launch K1 and K2 on every rank, and the
+   ``--prepare`` run each of K4's three kernels;
 16. prints a ``kernels`` line with each kernel's launches on its paths (K2's
    by shape: every counted run logs the shape of each K2 call, and a row's
    ``launches`` are those made at its shape; K2's row at two scenes,
@@ -180,6 +185,7 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 
 def emit(obj) -> None:
@@ -541,15 +547,22 @@ def kernel_edges(torch) -> dict:
     """K1, K2 and K3 bit-equal to their plain versions on the corner cases
     of their designs (K3 also on a table of more than 2^31 words), K1's
     exact path taken by no row that its design must sort and by every row
-    that it must send there (``knn_path_rows``), and the time of K2's chain
+    that it must send there (``knn_path_rows``), the time of K2's chain
     of picks with no distance to update (an all-invalid scene of the main
-    path's size)."""
+    path's size), and K4 within ``subm_check``'s limits on ``SUBM_CASES``,
+    its planted faults above them, with the plain versions' gaps beside
+    (then its ``subm_rows``)."""
     from geoformer_tpu_torch.kernels.edge_cases import (
+        SUBM_CASES,
         fps_cases,
         gather_cases,
         gather_table,
         knn_cases,
         knn_path_rows,
+        subm_check,
+        subm_operands,
+        subm_plain_run,
+        subm_plans,
     )
     from geoformer_tpu_torch.kernels.fps import cluster_size, fps, fps_plain
     from geoformer_tpu_torch.kernels.knn_select import (
@@ -593,13 +606,92 @@ def kernel_edges(torch) -> dict:
     pts = torch.zeros(1, p, 3, device="cuda")
     none = torch.zeros(1, p, dtype=torch.bool, device="cuda")
     floor_ms = time_ms(torch, lambda: fps(pts, none, ns), 10)
+    plans = subm_plans("cuda")
+    for name, plan, level, cin, cout in SUBM_CASES:
+        rb = plans[plan].rulebooks[level]
+        feats, w, grad = subm_operands(rb, cin, cout, seed=level)
+        for cd in (None, torch.bfloat16):
+            got = subm_check(feats, rb, w, grad, cd)
+            plain = subm_check(feats, rb, w, grad, cd, run=subm_plain_run(rb, cd))
+            faults = got["faults"].values()
+            ok = (all(got[d]["ratio"] <= 1.0 and got[d]["deterministic"]
+                      for d in ("fwd", "dgrad", "wgrad"))
+                  and all(r is None or r > 1.0 for r in faults)
+                  and (level > 0 or None not in faults))
+            cases.append({"kernel": "subm_conv", "case": name, "dtype": str(cd or torch.float32),
+                          "shape": [*feats.shape, cout], "within_limits": ok, **got,
+                          "plain_gaps": {d: plain[d]["gap"] for d in ("fwd", "dgrad", "wgrad")}})
+            bad += [] if ok else [f"subm_conv {name} {cd}"]
     res = {"phase": "kernel_edges", "cases": cases,
            "fps_chain": {"shape": [1, p, ns], "cluster_size": cluster_size(p), "ms": floor_ms,
                          "us_per_pick": floor_ms * 1e3 / (ns - 1)}}
     emit(res)
     if bad:
         fail(f"kernels disagree with their plain versions on {bad}")
+    res["subm_rows"] = subm_rows(torch, plans["cell"])
     return res
+
+
+def subm_rows(torch, plan) -> list:
+    """K4 at the training cell's level-0 and level-6 shapes (B = 8, the
+    shipped capacities, bf16 operands as the training config has them), each
+    direction against its plain version (the plain conv; its gradients by
+    autograd from a kept graph): CUDA-event ms over a loop of calls, and the
+    bound: the int32 map, the rows read and the rows written each once at
+    3.35 TB/s against 2 x rows x 27 x Cin x Cout operations at 989 TFLOP/s
+    (the forward's bf16 tensor cores) or 67 TFLOP/s (the gradients' float32
+    FMA), rows being the scenes' voxels (the kernels skip the capacity's
+    empty rest). The gradients' rows also give ``bound_tc_ms``: their float32
+    operand split exactly into three bf16 parts, so three times the
+    operations on the bf16 tensor cores. ``launches`` come from the paths
+    later."""
+    from geoformer_tpu_torch.kernels import subm_conv as k4
+    from geoformer_tpu_torch.kernels.edge_cases import subm_operands
+    from geoformer_tpu_torch.ops.sparse_conv import subm_conv_plain
+
+    rows = []
+    for level, width in ((0, 16), (6, 112)):
+        rb = plan.rulebooks[level]
+        feats, w, grad = subm_operands(rb, width, width, seed=level)
+        b, v = rb.nbr.shape[:2]
+        n = int(rb.n_voxels.sum())
+        cd = torch.bfloat16
+        ops = 2 * n * 27 * width * width
+        read = n * 27 * 4 + n * width * 4  # the map's and the input's live rows
+        moved = read + b * v * width * 4  # and every output row written
+        f, ww = feats.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = subm_conv_plain(f, rb.nbr, ww, cd)
+        directions = {
+            "subm_conv": (lambda: k4.subm_fwd(feats, rb.nbr, w, cd, rb.n_voxels),
+                          lambda: subm_conv_plain(feats, rb.nbr, w, cd), BF16_OPS_PER_S,
+                          moved),
+            "subm_conv_dgrad": (
+                lambda: k4.subm_dgrad(grad, rb.nbr_t, w, cd, rb.n_voxels),
+                lambda: torch.autograd.grad(out, f, grad, retain_graph=True), F32_OPS_PER_S,
+                moved),
+            "subm_conv_wgrad": (
+                lambda: k4.subm_wgrad(feats, rb.nbr, grad, w, cd, rb.n_voxels),
+                lambda: torch.autograd.grad(out, ww, grad, retain_graph=True), F32_OPS_PER_S,
+                read + n * width * 4 + w.numel() * 4),  # the output gradient's rows, dW
+        }
+        for name, (kernel, plain, peak, bytes_) in directions.items():
+            b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+            row = {"name": name, "route": "cuda", "source": "geoformer_tpu_torch/csrc/subm_conv.cu",
+                   "replaces": "geoformer_tpu_torch/ops/sparse_conv.py:subm_conv_plain "
+                               "(no TPU kernel: XLA gathers and a dot)",
+                   "shape": [b, v, width, width], "level": level, "rows": n,
+                   "ms": time_ms(torch, kernel, 20),
+                   "plain_ms": time_ms(torch, plain, 3),
+                   "bound_ms": max(b_bytes, b_ops),
+                   "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                   "library_ms": None}
+            if peak == F32_OPS_PER_S:
+                row["bound_tc_ms"] = max(b_bytes, 3 * ops / BF16_OPS_PER_S * 1e3)
+            emit({"phase": "kernel", **row})
+            rows.append(row)
+        del feats, w, grad, f, ww, out
+    torch.cuda.empty_cache()
+    return rows
 
 
 
@@ -1565,16 +1657,25 @@ def capture_train_kernels(torch, Engine, cfg, ckpt, few_shot) -> dict:
     return {"knn": next(iter(knn.first.values())), "fps": fps_log.first}
 
 
+def plain_subm(feats, rb, w, compute_dtype=None):
+    """The U-Net's ``apply_subm`` through the plain conv: K4 at float64,
+    which the kernel does not take."""
+    from geoformer_tpu_torch.ops.sparse_conv import subm_conv_plain
+
+    return subm_conv_plain(feats, rb.nbr, w, compute_dtype)
+
+
 def small_train_step(torch, Engine, cfg, sd, batch, device, dtype, capture=False) -> dict:
     """One full-phase training step of a fresh engine at ``dtype`` (the
     model and the batch's floats cast to it) on ``device``: the loss, the
     matched instances and every gradient (on the CPU, float64), with K1's
-    and K2's inputs when ``capture``. At float64 the card has no kernel (K1
-    and K2 take float32), so their plain versions pick on the card there:
+    and K2's inputs when ``capture``. At float64 the card has no kernel (K1,
+    K2 and K4 take float32), so their plain versions run on the card there:
     the float64 runs check the rest of the step, the float32 runs the
     kernels."""
     import geoformer_tpu_torch.ops.fps as ops_fps
     import geoformer_tpu_torch.ops.radius_graph as ops_rg
+    import geoformer_tpu_torch.models.unet as unet
     from geoformer_tpu_torch.kernels.fps import fps, fps_plain
     from geoformer_tpu_torch.kernels.knn_select import (
         select_min_k_cand,
@@ -1582,6 +1683,7 @@ def small_train_step(torch, Engine, cfg, sd, batch, device, dtype, capture=False
     )
     from geoformer_tpu_torch.models.unet import BottleneckTransformer
 
+    unet_apply_subm = unet.apply_subm
     engine = Engine(cfg, device=device, state_dict=sd)
     engine.init_state()
     engine.model.to(dtype)
@@ -1596,6 +1698,7 @@ def small_train_step(torch, Engine, cfg, sd, batch, device, dtype, capture=False
     plain = dtype == torch.float64 and device != "cpu"
     if plain:
         ops_rg.select_min_k_cand, ops_fps.fps = select_min_k_cand_plain, fps_plain
+        unet.apply_subm = plain_subm
     try:
         engine.model.train()
         tb = {k: v.to(dtype) if v.is_floating_point() else v
@@ -1606,6 +1709,7 @@ def small_train_step(torch, Engine, cfg, sd, batch, device, dtype, capture=False
     finally:
         select_min_k_cand.capture = fps.capture = None
         ops_rg.select_min_k_cand, ops_fps.fps = select_min_k_cand, fps
+        unet.apply_subm = unet_apply_subm
     return {"loss": float(loss.detach()), "num_gt": float(ld["num_gt"]),
             "grads": {k: p.grad.detach().cpu().double() for k, p in
                       engine.model.named_parameters() if p.grad is not None},
@@ -1894,13 +1998,14 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
     ``matches`` (this process's rows) replace the first step's own, which
     are still reported: a float32 run takes float64's, so that a near-tie
     that the auction breaks the other way in float32 does not stand in for
-    rounding. At float64 K1 and K2 pick through their plain versions (the
+    rounding. At float64 K1, K2 and K4 run their plain versions (the
     kernels take float32)."""
     import numpy as np
 
     import geoformer_tpu_torch.models.geoformer as gf
     import geoformer_tpu_torch.ops.fps as ops_fps
     import geoformer_tpu_torch.ops.radius_graph as ops_rg
+    import geoformer_tpu_torch.models.unet as unet
     from geoformer_tpu_torch.cli.train import state_digest
     from geoformer_tpu_torch.kernels.fps import fps, fps_plain
     from geoformer_tpu_torch.kernels.knn_select import (
@@ -1910,6 +2015,7 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
     from geoformer_tpu_torch.models.unet import BottleneckTransformer
     from geoformer_tpu_torch.parallel.mesh import TRAFFIC
 
+    unet_apply_subm = unet.apply_subm
     engine = Engine(inputs["cfg"], device="cuda", state_dict=inputs["sd"], mesh=mesh)
     state = engine.init_state()
     engine.model.to(dtype)
@@ -1952,6 +2058,7 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
     gf.random_pack_by_mask = injected_pack(torch)
     if dtype == torch.float64:
         ops_rg.select_min_k_cand, ops_fps.fps = select_min_k_cand_plain, fps_plain
+        unet.apply_subm = plain_subm
     try:
         gen = torch.Generator(device=engine.device).manual_seed(0)
         for i in range(steps):
@@ -1965,6 +2072,7 @@ def ddp_steps(torch, Engine, inputs, dtype, mesh=None, steps: int = 2, matches=N
     finally:
         gf.random_pack_by_mask = real_pack
         ops_rg.select_min_k_cand, ops_fps.fps = select_min_k_cand, fps
+        unet.apply_subm = unet_apply_subm
     return dict(first, digest=state_digest(engine.model),
                 launches={"knn_select": select_min_k_cand.launches - launches0[0],
                           "fps": fps.launches - launches0[1]})
@@ -2082,9 +2190,7 @@ def driver_rank(torch, work: str) -> None:
     formed them."""
     import importlib
 
-    from geoformer_tpu_torch.kernels.fps import fps
-    from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand
-    from geoformer_tpu_torch.kernels.row_gather import row_gather
+    from geoformer_tpu_torch import kernels
     from geoformer_tpu_torch.parallel import dist as pdist
 
     with open(os.path.join(work, "spec.json")) as f:
@@ -2100,7 +2206,7 @@ def driver_rank(torch, work: str) -> None:
         return out
 
     pdist.init_distributed = recording
-    counters = {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather}
+    counters = kernels.wrappers()
     if spec["train"]:
         res = run_train_driver(torch, f"{spec['phase']}_rank{rank}", mod.main, spec["argv"],
                                counters, backbone_trains=True, full_phase=spec["full_phase"])
@@ -2867,6 +2973,7 @@ TRAIN_BENCH_RUNS = (("train_bench", ["--steps", "2"]),
                     ("train_bench_fs", ["--fs", "--steps", "2"]),
                     ("train_bench_mesh", ["--mesh", "2", "--steps", "1"]))
 TOOL_TIMEOUT_S = 600
+SUBM_KERNELS = ("subm_conv", "subm_conv_dgrad", "subm_conv_wgrad")
 
 
 def run_tool(here, module: str, argv: list) -> tuple:
@@ -3005,6 +3112,8 @@ def train_bench(torch, here) -> dict:
             if line["phase"] != "prepare" and min(c["launches"]["knn_select"],
                                                   c["launches"]["fps"]) <= 0:
                 fail(f"train_bench {name}: rank {c['rank']} launched {c['launches']}")
+            if line["phase"] == "prepare" and min(c["launches"][k] for k in SUBM_KERNELS) <= 0:
+                fail(f"train_bench {name}: K4 not launched: {c['launches']}")
             by_path[name if ranks == 1 else f"{name}_rank{c['rank']}"] = c["launches"]
     return by_path
 
@@ -3062,7 +3171,7 @@ def main(argv=None) -> int:
           "ptxas": [" ".join(line.split()) for line in kernels.build_log().splitlines()
                     if "Compiling entry" in line or "Used" in line or "spill" in line]})
 
-    counters = {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather}
+    counters = kernels.wrappers()
     small_reference(torch, cfg_mod, Engine, synthetic_batch)
     edges = kernel_edges(torch)
 
@@ -3279,7 +3388,10 @@ def main(argv=None) -> int:
         {"knn_select": k1_row, "fps": k2_row}[row["name"]]["other_shapes"].append(row)
     by_path.update(train_bench(torch, here))
     emit({"phase": "throughput_tools_done", "seconds": time.time() - t0})
-    rows = [k1_row, k2_row, k3_row]
+    k4_rows = edges["subm_rows"]
+    for row in k4_rows:
+        row["launches"] = by_path["train_bench_prepare"][row["name"]]
+    rows = [k1_row, k2_row, k3_row, *k4_rows]
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()
                                    if c.get(row["name"])}

@@ -11,9 +11,11 @@ appear by ``os.replace``: no process loads a half-written file, and the
 second finds the first's library.
 
 Wrappers (``kernels/fps.py``, ``kernels/knn_select.py``,
-``kernels/row_gather.py``) take the plain
-PyTorch version for CPU tensors and launch the kernel for CUDA tensors; they
-raise if the kernel cannot run, and never fall back.
+``kernels/row_gather.py``) take the plain PyTorch version for CPU tensors
+and launch the kernel for CUDA tensors; ``kernels/subm_conv.py``'s launches
+take CUDA tensors alone (its caller, ``ops/sparse_conv.py:apply_subm``,
+sends CPU tensors to the plain conv). They raise if the kernel cannot run,
+and never fall back.
 """
 
 from __future__ import annotations
@@ -124,8 +126,10 @@ def wrappers() -> dict:
     from geoformer_tpu_torch.kernels.fps import fps
     from geoformer_tpu_torch.kernels.knn_select import select_min_k_cand
     from geoformer_tpu_torch.kernels.row_gather import row_gather
+    from geoformer_tpu_torch.kernels.subm_conv import subm_dgrad, subm_fwd, subm_wgrad
 
-    return {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather}
+    return {"knn_select": select_min_k_cand, "fps": fps, "row_gather": row_gather,
+            "subm_conv": subm_fwd, "subm_conv_dgrad": subm_dgrad, "subm_conv_wgrad": subm_wgrad}
 
 
 def reset_launches() -> None:
@@ -164,6 +168,12 @@ def lib() -> ctypes.CDLL:
         so.row_gather_launch.restype = i
         so.row_gather_per_unit_launch.argtypes = [p, p, p, i, i, p]
         so.row_gather_per_unit_launch.restype = i
+        so.subm_conv_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        so.subm_conv_fwd_launch.restype = i
+        so.subm_conv_dgrad_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        so.subm_conv_dgrad_launch.restype = i
+        so.subm_conv_wgrad_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        so.subm_conv_wgrad_launch.restype = i
         so.error_string.argtypes = [i]
         so.error_string.restype = ctypes.c_char_p
         _lib = so

@@ -1,12 +1,16 @@
-"""Corner cases of the K1, K2 and K3 kernels' designs, as seeded numpy inputs.
+"""Corner cases of the K1, K2 and K3 kernels' designs, as seeded numpy inputs,
+and K4's (the submanifold conv) rulebooks and operands with its check.
 
 Each case names what it exercises. The card tests
 (``tests/test_torch_{fps,knn_select,gather}.py``) and the ``kernel_edges``
-phase of ``chip_smoke.py`` hold each kernel bit-equal to its plain version on
+phase of ``chip_smoke.py`` hold each of K1-K3 bit-equal to its plain version on
 them,
 and K1's exact-path rows to the rows that its design must sort or must send
 to its exact path (``knn_path_rows``); the CPU tests hold the plain versions
-against JAX on the ones JAX can take.
+against JAX on the ones JAX can take. K4 sums in another order than its
+plain version, so ``subm_check`` holds it to a float64 reference within
+limits set from sound runs, and checks that planted faults exceed them
+(``tests/test_torch_subm_conv.py`` and ``kernel_edges`` on ``SUBM_CASES``).
 """
 
 from __future__ import annotations
@@ -275,3 +279,212 @@ def gather_table(x: np.ndarray, misaligned: bool, device) -> torch.Tensor:
     view = flat[int(misaligned):int(misaligned) + x.size].view(x.shape)
     view.copy_(torch.from_numpy(x))
     return view
+
+
+# ---------------- K4: the submanifold conv ----------------
+
+# (name, plan, level, Cin, Cout): the training cell's level-0 convs (the
+# input conv's Cin = 6, a block's 16, a tail's 2c = 32), a level-5 tail and
+# level 6 (V = 4,096, 112 wide), one scene, a compacted (tpu_subm_k = 8) map,
+# and scenes with pad rows and an empty scene at widths off every tile edge
+SUBM_CASES = (
+    ("cell_l0_16x16", "cell", 0, 16, 16),
+    ("cell_l0_input_6x16", "cell", 0, 6, 16),
+    ("cell_l0_tail_32x16", "cell", 0, 32, 16),
+    ("cell_l5_tail_192x96", "cell", 5, 192, 96),
+    ("cell_l6_112x112", "cell", 6, 112, 112),
+    ("b1_l1_32x32", "b1", 1, 32, 32),
+    ("compact_k8_l0_16x16", "compact", 0, 16, 16),
+    ("pads_l0_24x40", "pads", 0, 24, 40),
+    ("pads_l1_7x9", "pads", 1, 7, 9),
+)
+SUBM_SCALE, SUBM_SPATIAL = 50, 1024  # the configs' 2 cm voxels on a 1,024 grid
+
+
+def _scan_coords(rng, n_scenes: int, points: int) -> np.ndarray:
+    """[n, points, 3] int voxel coords of synthetic room scans."""
+    from geoformer_tpu_torch.synthetic import room_points
+
+    limit = (SUBM_SPATIAL - 1) / SUBM_SCALE - 0.05
+    pts = np.stack([np.clip(room_points(rng, points), 0.05, limit) for _ in range(n_scenes)])
+    return np.floor(pts * SUBM_SCALE).astype(np.int64)
+
+
+def subm_plans(device, seed: int = 0) -> dict:
+    """The plans of ``SUBM_CASES``: ``cell``, 8 scans of 250,000 points at
+    the shipped capacities (262,144 voxels, depth 7); ``b1``, one of them;
+    ``compact``, that one with tpu_subm_k = 8; ``pads``, 3 scans of 20,000
+    points at 32,768 voxels, depth 2, the second scene empty and the third
+    half masked."""
+    from geoformer_tpu_torch.ops.sparse_conv import build_grid_plan, voxel_capacities
+
+    rng = np.random.default_rng(seed)
+    cell = torch.from_numpy(_scan_coords(rng, 8, 250000)).to(device)
+    full = torch.ones(cell.shape[:2], dtype=torch.bool, device=device)
+    caps = voxel_capacities(262144, 7)
+    small = torch.from_numpy(_scan_coords(rng, 3, 20000)).to(device)
+    mask = torch.ones(small.shape[:2], dtype=torch.bool, device=device)
+    mask[1] = False
+    mask[2, 10000:] = False
+    return {
+        "cell": build_grid_plan(cell, full, SUBM_SPATIAL, 7, caps),
+        "b1": build_grid_plan(cell[:1], full[:1], SUBM_SPATIAL, 7, caps),
+        "compact": build_grid_plan(cell[:1], full[:1], SUBM_SPATIAL, 7, caps, subm_k=8),
+        "pads": build_grid_plan(small, mask, SUBM_SPATIAL, 2, voxel_capacities(32768, 2)),
+    }
+
+
+def subm_operands(rb, cin: int, cout: int, seed: int = 0):
+    """(feats [B,V,Cin], w [27,Cin,Cout], grad [B,V,Cout]) f32 on the
+    rulebook's device, normal; rows past a scene's voxels hold values too,
+    which nothing may read."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b, v = rb.nbr.shape[:2]
+    feats = torch.randn(b, v, cin, generator=g)
+    w = torch.randn(27, cin, cout, generator=g) / (27 * cin) ** 0.5
+    grad = torch.randn(b, v, cout, generator=g)
+    return tuple(t.to(rb.nbr.device) for t in (feats, w, grad))
+
+
+# The largest gap that a run of K4 may read, by direction and operand
+# type: the norm of (result - float64 reference) over the reference's norm,
+# in each slab (a scene's rows of the forward and the input gradient, an
+# offset's dW[k] of the weight gradient; ``subm_check``). Each is the first
+# of 1, 2, 3, 5 x 10^n at or above ten times the largest reading of the
+# kernel on every case of ``SUBM_CASES`` at three seeds on an H100 (PERF.md,
+# K4): 9.3e-7, 2.9e-6 (the tensor cores' sums), 2.0e-7, 1.2e-4, 7.2e-7 and
+# 3.9e-4 (a few dW values one bf16 step off, up to 2^-8 of a slab's norm).
+# The planted faults read 6e-2 and more. The plain versions read within
+# them, except the bf16 input gradient (up to 5.0e-3): its autograd also
+# rounds each chunk's sum of offsets.
+SUBM_LIMITS = {
+    ("fwd", "float32"): 1e-5, ("fwd", "bfloat16"): 3e-5,
+    ("dgrad", "float32"): 3e-6, ("dgrad", "bfloat16"): 2e-3,
+    ("wgrad", "float32"): 1e-5, ("wgrad", "bfloat16"): 5e-3,
+}
+SUBM_TILE = 64  # rows of a tile, as the kernels' blocks take them
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t [B,V,C], idx [B,V] in [0, V] -> t[b, idx[b, o]], zeros for V."""
+    b, _, c = t.shape
+    padded = torch.cat([t, t.new_zeros(b, 1, c)], 1)
+    return torch.gather(padded, 1, idx.long()[..., None].expand(-1, -1, c))
+
+
+def subm_reference(feats, rb, w, grad, compute_dtype) -> dict:
+    """The conv's forward, input gradient and weight gradient in float64,
+    offset by offset over the rulebook ``rb``, on the operands as the
+    kernels take them (features and weights rounded to ``compute_dtype``;
+    the output gradient float32) and at the kernels' rounding points: with
+    bf16, each read's gradient (one offset's product) is rounded to bf16 and
+    so are the input gradient's sum and the weight gradient."""
+    nbr = rb.nbr
+    b, v, cin = feats.shape
+    cout = w.shape[-1]
+    cd = compute_dtype
+
+    def rounded(t):
+        return t.double() if cd is None else t.to(cd).double()
+
+    x, wk, g = rounded(feats), rounded(w), grad.double()
+    fwd = torch.zeros(b, v, cout, dtype=torch.float64, device=feats.device)
+    dx = torch.zeros(b, v + 1, cin, dtype=torch.float64, device=feats.device)
+    dw = torch.zeros(w.shape, dtype=torch.float64, device=feats.device)
+    for k in range(w.shape[0]):
+        read = _rows(x, nbr[..., k])
+        fwd += read @ wk[k]
+        dx.scatter_add_(1, nbr[..., k].long()[..., None].expand(-1, -1, cin),
+                        rounded(g @ wk[k].T))  # reads of the zero row land in row V
+        dw[k] = read.reshape(-1, cin).T @ g.reshape(-1, cout)
+    return {"fwd": fwd, "dgrad": rounded(dx[:, :v]), "wgrad": rounded(dw)}
+
+
+def subm_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest gap over the slabs of dim 0: |got - want| / |want| (2-norms;
+    0 where both are zero, inf where only the reference is)."""
+    diff = (got.double() - want).flatten(1).norm(dim=1)
+    norm = want.flatten(1).norm(dim=1)
+    gap = torch.where(norm > 0, diff / norm.clamp_min(1e-300),
+                      torch.where(diff > 0, float("inf"), 0.0))
+    return float(gap.max()) if gap.numel() else 0.0
+
+
+def subm_kernel_run(rb, compute_dtype) -> dict:
+    """K4's three launches over ``rb``, each as f(feats, w, grad)."""
+    from geoformer_tpu_torch.kernels import subm_conv as k4
+
+    cd, nv = compute_dtype, rb.n_voxels
+    return {"fwd": lambda f, w, g: k4.subm_fwd(f, rb.nbr, w, cd, nv),
+            "dgrad": lambda f, w, g: k4.subm_dgrad(g, rb.nbr_t, w, cd, nv),
+            "wgrad": lambda f, w, g: k4.subm_wgrad(f, rb.nbr, g, w, cd, nv)}
+
+
+def subm_plain_run(rb, compute_dtype) -> dict:
+    """The plain conv over ``rb`` and its autograd, as ``subm_kernel_run``."""
+    from geoformer_tpu_torch.ops.sparse_conv import subm_conv_plain
+
+    def grad_of(f, w, g, which):
+        f, w = f.detach().requires_grad_(which == 0), w.detach().requires_grad_(which == 1)
+        out = subm_conv_plain(f, rb.nbr, w, compute_dtype)
+        return torch.autograd.grad(out, (f, w)[which], g)[0]
+
+    return {"fwd": lambda f, w, g: subm_conv_plain(f, rb.nbr, w, compute_dtype),
+            "dgrad": lambda f, w, g: grad_of(f, w, g, 0),
+            "wgrad": lambda f, w, g: grad_of(f, w, g, 1)}
+
+
+def subm_check(feats, rb, w, grad, compute_dtype, run=None) -> dict:
+    """K4 (or ``run``: ``subm_plain_run`` for the plain versions) against
+    ``subm_reference`` on one rulebook -> per direction its ``gap``
+    (``subm_gap``), the ``limit`` (``SUBM_LIMITS``), ``ratio`` = gap / limit
+    (at most 1 to pass) and whether a second run is bit-equal; and under
+    ``faults`` the ratio of each planted fault (None where it changes
+    nothing), each of which must read above 1: the offset with the fewest
+    reads dropped from the forward and from the input gradient (its
+    weights zeroed), every other tile of 64 rows of a scene left out of
+    each direction (the forward's and the input gradient's rows zeroed, the
+    weight gradient's sum over rows without them), and that offset's dW
+    slab zeroed.
+
+    Why the sound gaps are small: bf16 products are exact in float32, so
+    the forward differs from the reference only by the order and rounding
+    of its float32 sums (27 Cin terms a value), as do the float32 input
+    gradient (Cout terms a read, then 27 reads) and the weight gradient (a
+    sum over every row). With bf16 the input gradient rounds each read and
+    the sum to bf16 in both: they part only where a float32 sum and the
+    exact one round to neighbouring bf16 values, and the plain version
+    rounds each chunk's sum of offsets too. The weight gradient's bf16
+    rounding likewise."""
+    cd = compute_dtype
+    run = run or subm_kernel_run(rb, cd)
+    precision = "float32" if cd is None else str(cd).split(".")[-1]
+    want = subm_reference(feats, rb, w, grad, cd)
+    out, got = {}, {}
+    for name in ("fwd", "dgrad", "wgrad"):
+        got[name], again = run[name](feats, w, grad), run[name](feats, w, grad)
+        gap, limit = subm_gap(got[name], want[name]), SUBM_LIMITS[(name, precision)]
+        out[name] = {"gap": gap, "limit": limit, "ratio": gap / limit,
+                     "deterministic": bool(torch.equal(got[name].view(torch.int32),
+                                                       again.view(torch.int32)))}
+    v = rb.nbr.shape[1]
+    reads = (rb.nbr < v).sum((0, 1))
+    k0 = int(torch.where(reads > 0, reads, reads.max() + 1).argmin())
+    w_dropped = w.clone()
+    w_dropped[k0] = 0
+    odd = ((torch.arange(v, device=feats.device) // SUBM_TILE) % 2 == 1)[None, :, None]
+    slab = got["wgrad"].clone()
+    slab[k0] = 0
+    faults = {
+        "fwd_offset_dropped": ("fwd", run["fwd"](feats, w_dropped, grad)),
+        "fwd_tiles_skipped": ("fwd", got["fwd"].masked_fill(odd, 0)),
+        "dgrad_offset_dropped": ("dgrad", run["dgrad"](feats, w_dropped, grad)),
+        "dgrad_tiles_skipped": ("dgrad", got["dgrad"].masked_fill(odd, 0)),
+        "wgrad_slab_zeroed": ("wgrad", slab),
+        "wgrad_tiles_skipped": ("wgrad", run["wgrad"](feats, w, grad.masked_fill(odd, 0))),
+    }
+    out["faults"] = {
+        f: None if torch.equal(bad, got[name])
+        else subm_gap(bad, want[name]) / out[name]["limit"]
+        for f, (name, bad) in faults.items()}
+    return out

@@ -77,12 +77,6 @@ def _stats_frozen(block: nn.Module):
             bn.update_stats = True
 
 
-def _level_nbr(plan: GridPlan, lvl: int):
-    """The subm rulebook of a level: its compacted (idx, oid) table where the
-    plan has them (tpu_subm_k < 27), else its [B,V,27] map."""
-    return plan.subm_compact[lvl] if plan.subm_compact else plan.subm[lvl]
-
-
 def _remat_contexts(block: nn.Module):
     return contextlib.nullcontext(), _stats_frozen(block)
 
@@ -163,7 +157,7 @@ class UBlock(nn.Module):
 
     def forward(self, x, plan: GridPlan):
         lvl = self.level
-        nbr = _level_nbr(plan, lvl)
+        nbr = plan.rulebooks[lvl]
         vmask = plan.grids[lvl].voxel_mask
         for i in range(self.block_reps):
             x = self._block(f"block{i}", x, nbr, vmask)
@@ -202,7 +196,7 @@ class SparseUNetBackbone(nn.Module):
 
     def forward(self, voxel_feats, plan: GridPlan):
         vmask0 = plan.grids[0].voxel_mask
-        x = apply_subm(voxel_feats, _level_nbr(plan, 0), self.input_conv, self.compute_dtype)
+        x = apply_subm(voxel_feats, plan.rulebooks[0], self.input_conv, self.compute_dtype)
         x = torch.where(vmask0[..., None], x, 0.0)
         x = self.unet(x, plan)
         return F.relu(self.output_bn(x, vmask0))

@@ -65,7 +65,8 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     [0, n], where n is the zero row (a pad slot) -> [B, *S, C].
 
     The port's one gather through pad slots: the sparse convs' rulebooks
-    and ``devoxelize`` read through it. Its backward adds each read's
+    (on the card the submanifold conv's kernels read its map themselves) and
+    ``devoxelize`` read through it. Its backward adds each read's
     gradient into its row (in float32, or float64 for a float64 table) and
     none into the zero row: the pad slot is read by most of a sparse conv's
     27 offsets and by every invalid point of a scene smaller than the

@@ -6,20 +6,27 @@ layout; those equal the rulebook path while no brick overflows and are not
 ported: on the card the gather/GEMM/scatter-free rulebook form is the
 natural one. ``plan_stats`` reports ``n_brick_overflow`` as zeros.
 
+The submanifold conv is kernel K4 on the card (``kernels/subm_conv.py``:
+a gather-GEMM forward, the input gradient over the transposed rulebook, the
+weight gradient) and ``subm_conv_plain`` on the CPU. ``build_grid_plan``
+gives each level a ``Rulebook``: the int32 [B,V,27] map, the voxel counts
+and the map's int32 transpose, built once a level by the first conv that
+takes a gradient.
+
 ``tpu_subm_k`` < 27 without bricks builds the JAX module's compact slot
 tables (``compact_subm_neighbors``: the live neighbours packed first, those
-past the k-th dropped). ``subm_conv_compact`` expands a table back to a
-27-slot map whose dropped offsets read the zero row and runs the rulebook
-conv on it: the same sums as JAX's one-hot routing (one weight a live
-slot), with no [V, k, Cin, Cout] per-slot weights, and one conv code path
-(its chunking, bf16 narrowing and ``take_rows`` backward) for both tables.
+past the k-th dropped). ``expand_compact`` turns a table back into a
+27-slot map whose dropped offsets read the zero row, and the conv runs on
+it: the same sums as JAX's one-hot routing (one weight a live slot), with
+no [V, k, Cin, Cout] per-slot weights, and one conv code path for both.
 
 ``compute_dtype=torch.bfloat16`` (the configs' ``tpu_compute_dtype: bfloat16``)
-narrows features before each gather and weights before each product, as
-the JAX module does; products accumulate and come out in float32, the JAX
-module's ``preferred_element_type``. A bf16 ``torch.matmul`` would round its
-output to bf16, so the narrowed operands are widened back to float32 (exact)
-for an f32 product instead (TF32 is off, ``set_fp32_precision``).
+narrows features and weights before each product, as the JAX module does;
+products accumulate and come out in float32, the JAX module's
+``preferred_element_type``. A bf16 ``torch.matmul`` would round its output
+to bf16, so the down and up convs widen the narrowed operands back to
+float32 (exact) for an f32 product instead (TF32 is off,
+``set_fp32_precision``).
 
 Weight layouts (as in the JAX module):
   subm k3:  w[27, Cin, Cout], offset index = (dz+1)*9 + (dy+1)*3 + (dx+1)
@@ -28,11 +35,13 @@ Weight layouts (as in the JAX module):
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from geoformer_tpu_torch.kernels.subm_conv import SubmConv
 from geoformer_tpu_torch.ops import gather_rows, padded_table, take_rows
 from geoformer_tpu_torch.ops.voxelize import VoxelGrid, pack_key, voxelize
 
@@ -43,7 +52,7 @@ SUBM_OFFSETS = np.array(
 
 
 def build_subm_neighbors(grid: VoxelGrid, spatial: int) -> torch.Tensor:
-    """[B, V, 27] gather map; entry = input voxel slot or V (pad).
+    """[B, V, 27] int32 gather map; entry = input voxel slot or V (pad).
 
     The JAX module ranks the neighbor keys with radius_graph.ranked_lookup,
     a compare-count form of searchsorted(side="left") on the sorted key
@@ -58,7 +67,35 @@ def build_subm_neighbors(grid: VoxelGrid, spatial: int) -> torch.Tensor:
     idx = idx.clamp(max=v - 1)
     hit = torch.gather(keys, 1, idx.reshape(b, -1)).reshape(b, v, 27) == nkey
     found = in_range & hit & (idx < grid.n_voxels[:, None, None])
-    return torch.where(found, idx, v)
+    return torch.where(found, idx, v).to(torch.int32)
+
+
+def transpose_map(nbr: torch.Tensor) -> torch.Tensor:
+    """Rulebook nbr [B,V,K] (V: none) -> int32 [B,V,K] with entry [b, i, k]
+    = o where nbr[b, o, k] = i, else V: the row that reads row i through
+    offset k. One scatter, exact for any rulebook (each (i, k) has at most
+    one reader); for the full 27-offset map it is the mirrored map
+    nbr[b, i, 26 - k]."""
+    b, v, k = nbr.shape
+    out = torch.full((b, v + 1, k), v, dtype=torch.int32, device=nbr.device)
+    readers = torch.arange(v, dtype=torch.int32, device=nbr.device).view(1, v, 1)
+    out.scatter_(1, nbr.long(), readers.expand(b, v, k))  # pads land in row v, dropped
+    return out[:, :v].contiguous()
+
+
+class Rulebook:
+    """What a level's submanifold convs read: ``nbr`` the [B,V,27] map (int32
+    on the card), ``n_voxels`` [B] int32 or None (every row may read: rows
+    at or past a scene's count neither read nor are read, and K4 skips
+    them), and ``nbr_t`` the map's transpose (``transpose_map``), built on
+    first use and kept: once a level a training forward, never in eval."""
+
+    def __init__(self, nbr: torch.Tensor, n_voxels: torch.Tensor | None = None):
+        self.nbr, self.n_voxels = nbr, n_voxels
+
+    @functools.cached_property
+    def nbr_t(self) -> torch.Tensor:
+        return transpose_map(self.nbr)
 
 
 class DownLink(NamedTuple):
@@ -106,13 +143,16 @@ def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _wide(a) @ _wide(b)
 
 
-def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
-              compute_dtype=None) -> torch.Tensor:
-    """Submanifold conv. feats [B,V,Cin], nbr [B,V,K], w [K,Cin,Cout] ->
-    [B,V,Cout] float32.
+def subm_conv_plain(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+                    compute_dtype=None) -> torch.Tensor:
+    """Submanifold conv in plain PyTorch, on any device and dtype: feats
+    [B,V,Cin], nbr [B,V,K], w [K,Cin,Cout] -> [B,V,Cout] float32 (float64
+    for float64 operands), differentiable through ``take_rows``.
 
     Offsets go in chunks of 128 // Cin (as in the JAX module) so the gathered
-    buffer stays bounded; missing neighbors read the explicit zero row V."""
+    buffer stays bounded; missing neighbors read the explicit zero row V.
+    Autograd rounds each read's gradient, and each chunk's sum, to the
+    table's type."""
     k, cin, cout = w.shape
     v = feats.shape[1]
     table = padded_table(_narrow(feats, compute_dtype))
@@ -125,6 +165,26 @@ def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
         part = _f32_product(g.reshape(g.shape[0], g.shape[1], -1), w[s:e].reshape(-1, cout))
         out = part if out is None else out + part
     return out
+
+
+def apply_subm(feats: torch.Tensor, rb: Rulebook, w: torch.Tensor,
+               compute_dtype=None) -> torch.Tensor:
+    """A submanifold conv over a level's ``Rulebook`` -> [B,V,Cout] float32:
+    ``subm_conv_plain`` for CPU tensors; on the card K4 (``SubmConv``),
+    which raises for what it cannot take (float64, an int64 map), with the
+    transposed map only where a gradient will be taken."""
+    if feats.device.type == "cpu":
+        return subm_conv_plain(feats, rb.nbr, w, compute_dtype)
+    backward = torch.is_grad_enabled() and (feats.requires_grad or w.requires_grad)
+    return SubmConv.apply(feats, w, rb.nbr, rb.nbr_t if backward else None, rb.n_voxels,
+                          compute_dtype)
+
+
+def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+              compute_dtype=None) -> torch.Tensor:
+    """Submanifold conv over a [B,V,27] map (``apply_subm`` of its
+    ``Rulebook``, every row live)."""
+    return apply_subm(feats, Rulebook(nbr), w, compute_dtype)
 
 
 def compact_subm_neighbors(nbr: torch.Tensor, k: int):
@@ -140,24 +200,22 @@ def compact_subm_neighbors(nbr: torch.Tensor, k: int):
     return torch.where(oid < 27, idx, v), oid
 
 
-def subm_conv_compact(feats: torch.Tensor, idx: torch.Tensor, oid: torch.Tensor,
-                      w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """Submanifold conv over a compacted slot table (idx, oid [B,V,K], see
-    compact_subm_neighbors), w [27,Cin,Cout] -> [B,V,Cout] float32: each
-    slot's neighbour routed to its offset's weight. The table is expanded
-    to a 27-slot map (dropped offsets and dead slots -> the zero row V; the
-    dead slots land in a 28th column, cut off) for ``subm_conv``."""
-    v = feats.shape[1]
+def expand_compact(idx: torch.Tensor, oid: torch.Tensor) -> torch.Tensor:
+    """A compacted slot table (idx, oid [B,V,K], see compact_subm_neighbors)
+    -> the 27-slot map it routes (dropped offsets and dead slots -> the zero
+    row V; the dead slots land in a 28th column, cut off)."""
+    v = idx.shape[1]
     nbr = idx.new_full(idx.shape[:2] + (28,), v)
     nbr.scatter_(2, oid, idx)
-    return subm_conv(feats, nbr[..., :27], w, compute_dtype)
+    return nbr[..., :27].contiguous()
 
 
-def apply_subm(feats, nbr, w, compute_dtype=None):
-    """Dispatch: a compacted (idx, oid) table or a [B,V,27] neighbour map."""
-    if isinstance(nbr, tuple):
-        return subm_conv_compact(feats, nbr[0], nbr[1], w, compute_dtype)
-    return subm_conv(feats, nbr, w, compute_dtype)
+def subm_conv_compact(feats: torch.Tensor, idx: torch.Tensor, oid: torch.Tensor,
+                      w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """Submanifold conv over a compacted slot table, w [27,Cin,Cout] ->
+    [B,V,Cout] float32: each slot's neighbour routed to its offset's weight,
+    by ``subm_conv`` over ``expand_compact``'s map."""
+    return subm_conv(feats, expand_compact(idx, oid), w, compute_dtype)
 
 
 def dense_1x1(feats: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -195,14 +253,17 @@ def up_conv(parent_feats: torch.Tensor, link: DownLink, w: torch.Tensor,
 
 class GridPlan(NamedTuple):
     """Per-forward connectivity for the whole U-Net, one entry per level:
-    grids (level 0 = point-resolution voxels), subm [B,V_l,27] neighbor maps,
-    links[l] connecting level l -> l+1, and subm_compact: () or the (idx,
-    oid) compacted tables of each level (build_grid_plan's subm_k)."""
+    grids (level 0 = point-resolution voxels), subm [B,V_l,27] int32
+    neighbor maps, links[l] connecting level l -> l+1, subm_compact: () or
+    the (idx, oid) compacted tables of each level (build_grid_plan's
+    subm_k), and rulebooks: the ``Rulebook`` the level's convs read (of
+    subm, or of the compacted tables' expanded maps)."""
 
     grids: tuple
     subm: tuple
     links: tuple
     subm_compact: tuple = ()
+    rulebooks: tuple = ()
 
 
 def plan_stats(plan: GridPlan) -> dict:
@@ -254,7 +315,11 @@ def build_grid_plan(coords: torch.Tensor, mask: torch.Tensor, spatial: int, dept
         subm.append(build_subm_neighbors(grids[lvl], s))
         s //= 2
     compact = ()
+    maps = subm
     if subm_k is not None and subm_k < 27:
         compact = tuple(compact_subm_neighbors(n, subm_k) for n in subm)
+        maps = [expand_compact(idx, oid) for idx, oid in compact]
     return GridPlan(grids=tuple(grids), subm=tuple(subm), links=tuple(links),
-                    subm_compact=compact)
+                    subm_compact=compact,
+                    rulebooks=tuple(Rulebook(n, g.n_voxels.to(torch.int32))
+                                    for n, g in zip(maps, grids)))

@@ -93,7 +93,7 @@ def test_measure_prints_one_result_line(tiny_cfg, capsys, one_thread):
     assert line["kernel_build_s"] is None and line["power_limit_w"] is None
     launches = json.loads(err.strip().splitlines()[-1])
     assert launches["forwards"] == 9 and set(launches["launches"]) == {
-        "knn_select", "fps", "row_gather"}
+        "knn_select", "fps", "row_gather", "subm_conv", "subm_conv_dgrad", "subm_conv_wgrad"}
 
 
 def test_train_bench_prints_a_finite_p50_step(capsys, one_thread):

@@ -264,8 +264,8 @@ def test_compact_conv_matches_jax(conv_plan, bf16):
         lambda f, i, o, ww: jax_sc.subm_conv_compact(f, i, o, ww, compute_dtype=dt),
         jnp.asarray(feats), jnp.asarray(want.subm_compact[0][0]),
         jnp.asarray(want.subm_compact[0][1]), jnp.asarray(w)))
-    out = sparse_conv.apply_subm(_t(feats), (idx, oid), _t(w),
-                                 torch.bfloat16 if bf16 else None)
+    out = sparse_conv.subm_conv_compact(_t(feats), idx, oid, _t(w),
+                                        torch.bfloat16 if bf16 else None)
     assert out.dtype == torch.float32
     tol = 1e-3 * np.abs(ref).max() if bf16 else 1e-5
     np.testing.assert_allclose(out.numpy(), ref, atol=tol, rtol=0)
